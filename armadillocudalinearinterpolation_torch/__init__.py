@@ -1,0 +1,71 @@
+"""PyTorch and CUDA port of the equation-free event-driven-map framework.
+
+The JAX package ``armadillocudalinearinterpolation_tpu`` is the reference;
+this package computes the same map on torch tensors, with the event-driven
+evolve as a hand-written CUDA kernel for Hopper (``csrc/evolve.cu``, built
+with ``nvcc`` at first use) beside its plain PyTorch version.  The map
+``F(Z)`` (lift -> evolve -> restrict -> masked mean -> residual), damped
+Newton with finite-difference Jacobians, and the eigenvalue stability count
+are the slice ported so far.  This package never imports JAX.
+"""
+
+from .config import ModelConfig, MapParams, NewtonConfig
+from .model.coupling import coupling_kernel, coupling_row, mexican_hat
+from .model.lift import lift, initial_spike_indices
+from .model.events import event_time
+from .model.evolve import EvolveResult, evolve_ensemble
+from .model.evolve_cuda import evolve_ensemble_cuda
+from .model.restrict import restrict_positions, masked_ensemble_mean
+from .model.emap import (
+    z_to_u,
+    u_to_z,
+    sample_beta,
+    event_driven_map,
+    make_residual_fn,
+    MapDiagnostics,
+)
+from .solvers.criterion import residual_norm_criterion, relative_criterion
+from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
+                             print_iteration_table, NewtonResult)
+from .analysis.stability import (
+    ProblemType,
+    compute_eigenvalues,
+    count_unstable,
+    num_unstable_eigenvalues,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ModelConfig",
+    "MapParams",
+    "NewtonConfig",
+    "coupling_kernel",
+    "coupling_row",
+    "mexican_hat",
+    "lift",
+    "initial_spike_indices",
+    "event_time",
+    "EvolveResult",
+    "evolve_ensemble",
+    "evolve_ensemble_cuda",
+    "restrict_positions",
+    "masked_ensemble_mean",
+    "z_to_u",
+    "u_to_z",
+    "sample_beta",
+    "event_driven_map",
+    "make_residual_fn",
+    "MapDiagnostics",
+    "residual_norm_criterion",
+    "relative_criterion",
+    "newton_solve",
+    "fd_jacobian",
+    "central_fd_jacobian",
+    "print_iteration_table",
+    "NewtonResult",
+    "ProblemType",
+    "compute_eigenvalues",
+    "count_unstable",
+    "num_unstable_eigenvalues",
+]

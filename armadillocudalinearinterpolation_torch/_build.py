@@ -1,0 +1,99 @@
+"""Build the CUDA kernels at first use and load them with ``ctypes``.
+
+The sources in ``csrc/*.cu`` carry a plain ``extern "C"`` interface and
+include no PyTorch headers, so one ``nvcc`` call compiles them in seconds.
+The library lands in ``build/kernels/libatorch_kernels_<hash>.so`` at the
+root of the checkout, keyed by a hash of the sources and the flags, so an
+edited source rebuilds and an unchanged one loads the existing library.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+# argument types of every exported function
+_SIGNATURES = {
+    "atorch_evolve_f32": [_P] * 10 + [_I] * 5 + [_D] * 10 + [_P],
+    "atorch_evolve_f64": [_P] * 10 + [_I] * 5 + [_D] * 10 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
+    then ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA kernels "
+                           "cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libatorch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use only) and load the kernels; set every signature."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.atorch_error_string.argtypes = [ctypes.c_int]
+        lib.atorch_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.atorch_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

@@ -1,0 +1,136 @@
+"""Evolve: the event-driven network loop, plain PyTorch version.
+
+One loop over ``(rows, N)`` tensors with a per-row live mask.  A row is one
+(point, realisation) pair: row ``p * R + r`` evolves point ``p``'s lift
+``(v0[p], s0[p])`` under realisation ``r``'s rates ``beta[r]``.  Per event:
+
+  1. every neuron proposes its next firing time (:func:`.events.event_time`);
+  2. an argmin picks the row's event, lowest neuron index on ties;
+  3. all states advance analytically by ``dt``; the firing neuron resets to
+     0 and every neuron takes the ring kick ``beta * w(|i - j|)``, with the
+     kernel recomputed analytically;
+  4. the event is classified to the nearest tracked trajectory (lowest id
+     on ties) and recorded as last-before-``T`` or first-after-``T``;
+  5. a row stops when all its trajectories have crossed ``T`` or ``t``
+     reaches ``2T``; it is accepted only if all trajectories crossed.
+
+This is the plain version of the CUDA kernel in ``csrc/evolve.cu``
+(:mod:`.evolve_cuda`): the CPU path, and the kernel's oracle on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import ModelConfig
+from .events import event_time
+
+
+class EvolveResult(NamedTuple):
+    """Per-row spike bookkeeping after evolution to (past) ``T``."""
+
+    last_ind: torch.Tensor      # (rows, M) int32, last firing site before T
+    last_time: torch.Tensor     # (rows, M) last firing time before T
+    crossed_ind: torch.Tensor   # (rows, M) int32, first firing site after T
+    crossed_time: torch.Tensor  # (rows, M) first firing time after T
+    accept: torch.Tensor        # (rows,) bool, all trajectories crossed T
+    n_events: torch.Tensor      # (rows,) int32 event count
+
+
+def check_evolve_inputs(cfg: ModelConfig, v0, s0, beta, init_ind) -> None:
+    """Shapes, dtypes and devices shared by both evolve versions."""
+    N, M = cfg.n_neurons, cfg.n_spikes
+    if v0.ndim != 2 or v0.shape[1] != N or s0.shape != v0.shape:
+        raise ValueError(f"v0 and s0 must both be (P, {N}); got "
+                         f"{tuple(v0.shape)} and {tuple(s0.shape)}")
+    if beta.ndim != 2 or beta.shape[1] != N:
+        raise ValueError(f"beta must be (R, {N}); got {tuple(beta.shape)}")
+    if tuple(init_ind.shape) != (v0.shape[0], M):
+        raise ValueError(f"init_ind must be ({v0.shape[0]}, {M}); got "
+                         f"{tuple(init_ind.shape)}")
+    if init_ind.dtype != torch.int32:
+        raise TypeError(f"init_ind must be int32; got {init_ind.dtype}")
+    if not (v0.dtype == s0.dtype == beta.dtype
+            and v0.dtype in (torch.float32, torch.float64)):
+        raise TypeError("v0, s0 and beta must share one dtype, float32 or "
+                        f"float64; got {v0.dtype}, {s0.dtype}, {beta.dtype}")
+    if len({t.device for t in (v0, s0, beta, init_ind)}) != 1:
+        raise ValueError("v0, s0, beta and init_ind must be on one device")
+
+
+def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
+                    beta: torch.Tensor, init_ind: torch.Tensor
+                    ) -> EvolveResult:
+    """Ensemble evolve of ``P`` points x ``R`` realisations.
+
+    Args:
+      v0, s0: ``(P, N)`` lifted states, one per point.
+      beta: ``(R, N)`` per-realisation synaptic rates (shared by all points).
+      init_ind: ``(P, M)`` int32 initial spike indices, one row per point.
+
+    Returns:
+      :class:`EvolveResult` over ``P * R`` rows; row ``p * R + r`` is point
+      ``p`` under realisation ``r``.
+    """
+    check_evolve_inputs(cfg, v0, s0, beta, init_ind)
+    dt_, dev = v0.dtype, v0.device
+    P, N = v0.shape
+    R, M = beta.shape[0], cfg.n_spikes
+    rows = P * R
+    T = cfg.t_horizon
+    b = beta.repeat(P, 1)                                    # (rows, N)
+    v = v0.repeat_interleave(R, dim=0)
+    s = s0.repeat_interleave(R, dim=0)
+    t = torch.zeros(rows, dtype=dt_, device=dev)
+    last_ind = init_ind.repeat_interleave(R, dim=0)
+    crossed_ind = last_ind.clone()
+    last_time = torch.zeros(rows, M, dtype=dt_, device=dev)
+    crossed_time = torch.full((rows, M), 2.0 * T, dtype=dt_, device=dev)
+    crossed = torch.zeros(rows, M, dtype=torch.bool, device=dev)
+    n_events = torch.zeros(rows, dtype=torch.int32, device=dev)
+    lane = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+    traj = torch.arange(M, device=dev)[None, :]
+
+    while True:
+        live = ~crossed.all(dim=1) & (t < 2.0 * T)           # (rows,)
+        if not bool(live.any()):
+            break
+        times = event_time(v, s, b, cfg)                     # (rows, N)
+        j = torch.argmin(times, dim=1).to(torch.int32)       # lowest on ties
+        dt = torch.gather(times, 1, j[:, None].long())       # (rows, 1)
+
+        emt = torch.exp(-dt)
+        v_new = (v * emt + cfg.drive * (1.0 - emt)
+                 + s * emt / (1.0 - b) * (torch.exp((1.0 - b) * dt) - 1.0))
+        v_new = torch.where(lane == j[:, None], 0.0, v_new)
+        d = torch.abs(lane - j[:, None])
+        dist = torch.minimum(d, N - d).to(dt_) * cfg.dx
+        wrow = (cfg.a1 * torch.exp(-cfg.b1 * dist)
+                - cfg.a2 * torch.exp(-cfg.b2 * dist)) * cfg.dx
+        s_new = s * torch.exp(-b * dt) + b * wrow
+        t_new = t + dt[:, 0]
+
+        livec = live[:, None]
+        v = torch.where(livec, v_new, v)
+        s = torch.where(livec, s_new, s)
+        t = torch.where(live, t_new, t)
+
+        m = torch.argmin(torch.abs(j[:, None] - last_ind), dim=1)  # (rows,)
+        onehot = traj == m[:, None]
+        fresh = ~torch.gather(crossed, 1, m[:, None])[:, 0]
+        after = t_new > T
+        is_cross = (fresh & after & live)[:, None] & onehot
+        is_last = (fresh & ~after & live)[:, None] & onehot
+        jc, tc = j[:, None], t_new[:, None]
+        last_ind = torch.where(is_last, jc, last_ind)
+        last_time = torch.where(is_last, tc, last_time)
+        crossed_ind = torch.where(is_cross, jc, crossed_ind)
+        crossed_time = torch.where(is_cross, tc, crossed_time)
+        crossed = crossed | is_cross
+        n_events = n_events + live.to(torch.int32)
+
+    return EvolveResult(last_ind=last_ind, last_time=last_time,
+                        crossed_ind=crossed_ind, crossed_time=crossed_time,
+                        accept=crossed.all(dim=1), n_events=n_events)
