@@ -6,7 +6,9 @@ evolve as a hand-written CUDA kernel for Hopper (``csrc/evolve.cu``, built
 with ``nvcc`` at first use) beside its plain PyTorch version.  The map
 ``F(Z)`` (lift -> evolve -> restrict -> masked mean -> residual), damped
 Newton with finite-difference Jacobians, and the eigenvalue stability count
-are the slice ported so far.  This package never imports JAX.
+are the first slice ported; batched 2-D bilinear interpolation
+(``ops/interp_cuda.py``: f32 gather and bin-window kernels, native fp64,
+``csrc/interp2d.cu``) is the second.  This package never imports JAX.
 """
 
 from .config import ModelConfig, MapParams, NewtonConfig
@@ -27,6 +29,7 @@ from .model.emap import (
 from .solvers.criterion import residual_norm_criterion, relative_criterion
 from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
                              print_iteration_table, NewtonResult)
+from .ops.interp_cuda import bilinear_batched, bilinear_batched_f64
 from .analysis.stability import (
     ProblemType,
     compute_eigenvalues,
@@ -68,4 +71,6 @@ __all__ = [
     "compute_eigenvalues",
     "count_unstable",
     "num_unstable_eigenvalues",
+    "bilinear_batched",
+    "bilinear_batched_f64",
 ]

@@ -1,11 +1,12 @@
 """Build the CUDA kernels at first use and load them with ``ctypes``.
 
 The sources in ``csrc/*.cu`` carry a plain ``extern "C"`` interface and
-include no PyTorch headers, so one ``nvcc`` call compiles them in seconds.
-The library lands in ``build/kernels/libatorch_kernels_<hash>.so`` at the
-root of the checkout, keyed by a hash of the sources and the flags, so an
-edited source rebuilds and an unchanged one loads the existing library.
-Nothing here runs at import time.
+include no PyTorch headers, so ``nvcc`` compiles each in seconds; the
+sources compile in parallel, one ``nvcc`` each, and one more call links
+them.  The library lands in ``build/kernels/libatorch_kernels_<hash>.so``
+at the root of the checkout, keyed by a hash of the sources and the flags,
+so an edited source rebuilds and an unchanged one loads the existing
+library.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,9 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "atorch_evolve_f32": [_P] * 10 + [_I] * 5 + [_D] * 10 + [_P],
     "atorch_evolve_f64": [_P] * 10 + [_I] * 5 + [_D] * 10 + [_P],
+    "atorch_bilinear_gather": [_P] * 3 + [_I] * 5 + [_P],
+    "atorch_bilinear_binned": [_P] * 5 + [_I] * 9 + [_P],
+    "atorch_bilinear_f64": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -59,21 +63,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libatorch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, logs) -> None:
+    """Start the commands together, each writing to its log, and wait for
+    all of them; raise with the output of the first that failed."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    codes = [proc.wait() for proc in procs]
+    for cmd, code, log in zip(cmds, codes, logs):
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                               f"{log.read_text()}")
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless it exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{out.stem}.{os.getpid()}.{src.stem}.o"
+            for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    logs = [obj.with_suffix(".log") for obj in objs] + [tmp.with_suffix(".log")]
+    try:
+        _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)], logs[:-1])
+        _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]], logs[-1:])
+        os.replace(tmp, out)
+    finally:
+        for f in [tmp, *objs, *logs]:
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -8,12 +8,18 @@ kernel against its plain PyTorch version on the card (f32 and f64, and at
 the shapes the slice gives it), runs the reference's
 ``Driver.cu`` program through the public API (``make_residual_fn`` ->
 ``newton_solve`` -> ``num_unstable_eigenvalues`` at N=512, R=1000, f32),
-and times one map evaluation at N=1024, R=1024.  Each phase prints one JSON
-object; any failed check raises and the script exits non-zero.  The last
-line is ``{"ok": true, "device": {...}}``; before it come the card's name
-and power limit as ``nvidia-smi`` prints them and a ``{"kernels": [...]}``
-line.  Imports no JAX.  Without a CUDA device, or outside a checkout of the
-repository, it exits non-zero and prints no result.
+and times one map evaluation at N=1024, R=1024.  Then the batched 2-D
+bilinear path (``interp2d``): ``bilinear_batched`` at BASELINE config 2
+(64 grids of 256x256, 1M queries, f32; ``method="auto"`` -> the gather
+kernel), its large-grid leg (8 x 1024x1024, 1M queries; ``auto`` -> the
+bin-window kernel) and its fp64 leg (``bilinear_batched_f64``, 16 x
+256x256); each kernel against its plain version and a host-double oracle,
+and timed.  Each phase prints one JSON object; any failed check raises and
+the script exits non-zero.  The last line is ``{"ok": true, "device":
+{...}}``; before it come the card's name and power limit as ``nvidia-smi``
+prints them and a ``{"kernels": [...]}`` line.  Imports no JAX.  Without a
+CUDA device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -43,6 +49,21 @@ SLICE_FD_EPSILON = 3e-4
 MAP_N, MAP_R = 1024, 1024
 TARGETS = {"float64": {"identical": 0.99, "time": 1e-9, "residual": 1e-8},
            "float32": {"identical": 0.95, "time": None, "residual": 2e-5}}
+# interp2d: BASELINE config 2 (bench.py:120-149) and its fp64 and large-grid
+# legs (bench.py:249-319), as (grids, H, W, queries per grid)
+INTERP_F32 = (64, 256, 256, 16384)
+INTERP_LARGE = (8, 1024, 1024, 131072)
+INTERP_F64 = (16, 256, 256, 16384)
+INTERP_SMALL = (2, 64, 128, 1501)      # with out-of-range queries
+INTERP_ONE_BIN = (1, 256, 256, 4096)   # every query in [40, 41)^2
+# kernel vs plain: the same operation order without fused multiply-adds
+# (expect 0.0); bf16 grid vs exact (tests/test_interp_pallas.py:79); f64
+# (:203); f32 vs the host-double formula: rounding of three lerps of N(0,1)
+# values is a few 1e-7
+INTERP_BARS = {"f32_vs_plain": 1e-6, "bf16_vs_exact": 0.05, "f64": 1e-13,
+               "f32_vs_host_double": 1e-5}
+INTERP_SRC = f"{PKG}/csrc/interp2d.cu"
+INTERP_TPU = "armadillocudalinearinterpolation_tpu/ops/interp_pallas.py"
 
 
 class CheckFailed(RuntimeError):
@@ -260,6 +281,200 @@ def map_eval(pt, torch, dev, smi: str):
     return row
 
 
+def interp_inputs(torch, dev, shape, dtype, seed, lo=0.0, hi=None):
+    """Seeded N(0, 1) grids and queries uniform in ``[lo, hi)`` (default
+    ``[0, H-1)``, as bench.py draws them), made with numpy, on the card."""
+    import numpy as np
+    B, H, W, Q = shape
+    rng = np.random.default_rng(seed)
+    hi = H - 1.0 if hi is None else hi
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    grids = rng.standard_normal((B, H, W)).astype(np_dtype)
+    pts = rng.uniform(lo, hi, (B, Q, 2)).astype(np_dtype)
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(grids).to(dev)
+
+
+def host_double(pts, grids):
+    """The 4-term bilinear formula in numpy float64
+    (tests/test_interp_pallas.py:191-203), as a CPU tensor."""
+    import numpy as np
+    import torch
+    g = grids.cpu().double().numpy()
+    p = pts.cpu().double().numpy()
+    B, H, W = g.shape
+    r = np.clip(p[..., 0], 0, H - 1.0)
+    c = np.clip(p[..., 1], 0, W - 1.0)
+    r0 = np.clip(np.floor(r).astype(int), 0, H - 2)
+    c0 = np.clip(np.floor(c).astype(int), 0, W - 2)
+    tr, tc = r - r0, c - c0
+    bi = np.arange(B)[:, None]
+    return torch.from_numpy((1 - tr) * (1 - tc) * g[bi, r0, c0]
+                            + (1 - tr) * tc * g[bi, r0, c0 + 1]
+                            + tr * (1 - tc) * g[bi, r0 + 1, c0]
+                            + tr * tc * g[bi, r0 + 1, c0 + 1])
+
+
+def max_abs(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def timed(fn, torch, n=20):
+    """Median ms of ``n`` warm single calls (CUDA events around each), and
+    the mean ms of ``n`` calls issued back to back."""
+    fn()
+    torch.cuda.synchronize()
+    single = statistics.median(cuda_ms(fn, torch)[0] for _ in range(n))
+    total, _ = cuda_ms(lambda: [fn() for _ in range(n)], torch)
+    return single, total / n
+
+
+def interp2d(pt, torch, dev, smi: str):
+    """The batched 2-D bilinear path: the three legs through the public
+    entry points with the launch counts set to 0 just before each and read
+    just after; each kernel against its plain version; timings."""
+    from armadillocudalinearinterpolation_torch.ops import interp_cuda as ic
+    launches = ic.LAUNCHES
+    f32, f64 = torch.float32, torch.float64
+    p32, g32 = interp_inputs(torch, dev, INTERP_F32, f32, 0)
+    pL, gL = interp_inputs(torch, dev, INTERP_LARGE, f32, 1)
+    p64, g64 = interp_inputs(torch, dev, INTERP_F64, f64, 2)
+    torch.cuda.synchronize()
+
+    def drive(fn):
+        for k in launches:
+            launches[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(launches)
+
+    out32, route32 = drive(lambda: pt.bilinear_batched(p32, g32))
+    outL, routeL = drive(lambda: pt.bilinear_batched(pL, gL))
+    out64, route64 = drive(lambda: pt.bilinear_batched_f64(p64, g64))
+    for name, out, shape, dtype in (("config 2", out32, INTERP_F32, f32),
+                                    ("1024^2", outL, INTERP_LARGE, f32),
+                                    ("fp64", out64, INTERP_F64, f64)):
+        require(out.shape == shape[:1] + shape[3:] and out.dtype == dtype
+                and bool(torch.isfinite(out).all()),
+                f"interp2d {name}: shape {tuple(out.shape)}, {out.dtype}, "
+                "or non-finite values")
+    require(route32 == {"bilinear_gather": 1, "bilinear_binned": 0,
+                        "bilinear_f64": 0},
+            f"interp2d: auto at 256^2 launched {route32}, not the gather")
+    require(routeL == {"bilinear_gather": 0, "bilinear_binned": 1,
+                       "bilinear_f64": 0},
+            f"interp2d: auto at 1024^2 launched {routeL}, not the binned")
+    require(route64 == {"bilinear_gather": 0, "bilinear_binned": 0,
+                        "bilinear_f64": 1},
+            f"interp2d: the f64 leg launched {route64}")
+
+    # each kernel against its plain version at the legs' shapes
+    exact32 = ic.gather_plain(p32, g32)
+    bf32 = ic.bf16_grid(g32)
+    out_bf = pt.bilinear_batched(p32, g32, precision="bf16")
+    binsL = ic.bin_queries(pL, *INTERP_LARGE[1:3])
+    bfL = ic.bf16_grid(gL)
+    out_bfL = ic.binned_cuda(pL, bfL, binsL)
+    pO, gO = interp_inputs(torch, dev, INTERP_ONE_BIN, f32, 3, 40.0, 41.0)
+    binsO = ic.bin_queries(pO, *INTERP_ONE_BIN[1:3])
+    outO = pt.bilinear_batched(pO, gO, method="binned")
+    # out-of-range queries at a smaller shape, through all three kernels
+    pS, gS = interp_inputs(torch, dev, INTERP_SMALL, f32, 4, -3.0,
+                           INTERP_SMALL[2] + 3.0)
+    refS = host_double(pS, gS)
+    outS = {m: pt.bilinear_batched(pS, gS, method=m)
+            for m in ("full", "binned")}
+    outS64 = pt.bilinear_batched_f64(pS, gS)
+    plain, host, f64_bar = "f32_vs_plain", "f32_vs_host_double", "f64"
+    checks = {   # name: (kernel's result, reference, bar)
+        "gather_vs_plain": (out32, exact32, plain),
+        "gather_bf16_vs_plain": (out_bf, ic.gather_plain(p32, bf32), plain),
+        "bf16_vs_exact": (out_bf, exact32, "bf16_vs_exact"),
+        "binned_vs_plain": (outL, ic.binned_plain(pL, gL, binsL), plain),
+        "binned_vs_plain_gather": (outL, ic.gather_plain(pL, gL), plain),
+        "binned_bf16_vs_plain": (out_bfL, ic.binned_plain(pL, bfL, binsL),
+                                 plain),
+        "binned_one_bin_vs_plain": (outO, ic.binned_plain(pO, gO, binsO),
+                                    plain),
+        "f64_vs_plain": (out64, ic.f64_plain(p64, g64), f64_bar),
+        "f64_vs_host_double": (out64, host_double(p64, g64), f64_bar),
+        "small_full_vs_plain": (outS["full"], ic.gather_plain(pS, gS),
+                                plain),
+        "small_full_vs_host_double": (outS["full"], refS, host),
+        "small_binned_vs_plain": (outS["binned"], ic.gather_plain(pS, gS),
+                                  plain),
+        "small_binned_vs_host_double": (outS["binned"], refS, host),
+        "small_f64_vs_plain": (outS64, ic.f64_plain(pS.double(),
+                                                    gS.double()), f64_bar),
+        "small_f64_vs_host_double": (outS64, refS, f64_bar),
+    }
+    bars = INTERP_BARS
+    errs = {}
+    for key, (got, want, bar) in checks.items():
+        errs[key] = max_abs(got, want)
+        require(errs[key] <= bars[bar],
+                f"interp2d {key}: {errs[key]} > {bars[bar]}")
+    one_bin_count = int(torch.diff(binsO.offsets, dim=1).max())
+    require(one_bin_count == INTERP_ONE_BIN[3],
+            f"interp2d one-bin case: largest bin holds {one_bin_count}")
+
+    # times, kernel beside plain on the same inputs: (call, leg)
+    calls = {
+        "gather": (lambda: ic.gather_cuda(p32, g32), INTERP_F32),
+        "gather_plain": (lambda: ic.gather_plain(p32, g32), INTERP_F32),
+        "gather_bf16": (lambda: ic.gather_cuda(p32, bf32), INTERP_F32),
+        "gather_bf16_plain": (lambda: ic.gather_plain(p32, bf32),
+                              INTERP_F32),
+        "config2_entry_auto": (lambda: pt.bilinear_batched(p32, g32),
+                               INTERP_F32),
+        "config2_entry_bf16": (
+            lambda: pt.bilinear_batched(p32, g32, precision="bf16"),
+            INTERP_F32),
+        "binned": (lambda: ic.binned_cuda(pL, gL, binsL), INTERP_LARGE),
+        "binned_plain": (lambda: ic.binned_plain(pL, gL, binsL),
+                         INTERP_LARGE),
+        "binning_1024": (lambda: ic.bin_queries(pL, 1024, 1024),
+                         INTERP_LARGE),
+        "large_entry_auto": (lambda: pt.bilinear_batched(pL, gL),
+                             INTERP_LARGE),
+        "gather_at_1024": (lambda: ic.gather_cuda(pL, gL), INTERP_LARGE),
+        "gather_plain_at_1024": (lambda: ic.gather_plain(pL, gL),
+                                 INTERP_LARGE),
+        "f64": (lambda: ic.f64_cuda(p64, g64), INTERP_F64),
+        "f64_plain": (lambda: ic.f64_plain(p64, g64), INTERP_F64),
+    }
+    times = {k: timed(fn, torch) for k, (fn, _) in calls.items()}
+    rate = {k: leg[0] * leg[3] / (times[k][0] * 1e-3) / 1e6
+            for k, (_, leg) in calls.items()}
+    row = {"phase": "interp2d", "shapes": {"f32": INTERP_F32,
+                                           "large": INTERP_LARGE,
+                                           "f64": INTERP_F64},
+           "launches": {"config2_auto": route32, "large_auto": routeL,
+                        "f64": route64},
+           "max_abs_err": errs, "bars": bars,
+           "one_bin_largest_bin": one_bin_count,
+           "ms_median_of_20": {k: v[0] for k, v in times.items()},
+           "ms_back_to_back_mean_of_20": {k: v[1] for k, v in times.items()},
+           "mq_per_s": rate, "card": smi}
+    emit(row)
+
+    def entry(name, line, key, launched, err_keys):
+        return {"name": name, "route": "cuda", "source": INTERP_SRC,
+                "replaces": f"{INTERP_TPU}:{line}", "launches": launched,
+                "max_abs_err": max(errs[k] for k in err_keys),
+                "ms": times[key][0], "plain_ms": times[key + "_plain"][0]}
+
+    return [
+        entry("bilinear_gather", 871, "gather", route32["bilinear_gather"],
+              ["gather_vs_plain", "gather_bf16_vs_plain",
+               "small_full_vs_plain"]),
+        entry("bilinear_binned", 670, "binned", routeL["bilinear_binned"],
+              ["binned_vs_plain", "binned_bf16_vs_plain",
+               "binned_one_bin_vs_plain", "small_binned_vs_plain"]),
+        entry("bilinear_f64", 556, "f64", route64["bilinear_f64"],
+              ["f64_vs_plain", "small_f64_vs_plain"]),
+    ]
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from "
@@ -310,8 +525,10 @@ def main() -> int:
     kernels["ms"] = m["layers_ms_median_of_5"]["evolve"]
     kernels["plain_ms"] = m["plain_evolve_ms_median_of_3"]
 
+    interp_kernels = interp2d(pt, torch, dev, smi)
+
     print(smi, flush=True)
-    emit({"kernels": [kernels]})
+    emit({"kernels": [kernels, *interp_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

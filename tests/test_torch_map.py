@@ -119,6 +119,7 @@ def test_port_never_imports_jax():
     root = Path(__file__).resolve().parents[1]
     code = ("import sys, armadillocudalinearinterpolation_torch as p; "
             "import armadillocudalinearinterpolation_torch.interop; "
+            "import armadillocudalinearinterpolation_torch.ops.interp_cuda; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'armadillocudalinearinterpolation_tpu'))); "
