@@ -8,7 +8,9 @@ with ``nvcc`` at first use) beside its plain PyTorch version.  The map
 Newton with finite-difference Jacobians, and the eigenvalue stability count
 are the first slice ported; batched 2-D bilinear interpolation
 (``ops/interp_cuda.py``: f32 gather and bin-window kernels, native fp64,
-``csrc/interp2d.cu``) is the second.  This package never imports JAX.
+``csrc/interp2d.cu``) is the second; the 1-D interpolation family
+(``ops/interp1d_cuda.py``: uniform-grid, sorted-batch and non-uniform
+lerp, ``csrc/interp1d.cu``) is the third.  This package never imports JAX.
 """
 
 from .config import ModelConfig, MapParams, NewtonConfig
@@ -30,6 +32,7 @@ from .solvers.criterion import residual_norm_criterion, relative_criterion
 from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
                              print_iteration_table, NewtonResult)
 from .ops.interp_cuda import bilinear_batched, bilinear_batched_f64
+from .ops.interp1d_cuda import lerp1d, lerp1d_binned, make_interp1d
 from .analysis.stability import (
     ProblemType,
     compute_eigenvalues,
@@ -73,4 +76,7 @@ __all__ = [
     "num_unstable_eigenvalues",
     "bilinear_batched",
     "bilinear_batched_f64",
+    "lerp1d",
+    "lerp1d_binned",
+    "make_interp1d",
 ]

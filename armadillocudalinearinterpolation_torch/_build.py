@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _D = ctypes.c_double
 # argument types of every exported function
 _SIGNATURES = {
@@ -35,6 +36,9 @@ _SIGNATURES = {
     "atorch_bilinear_gather": [_P] * 3 + [_I] * 5 + [_P],
     "atorch_bilinear_binned": [_P] * 5 + [_I] * 9 + [_P],
     "atorch_bilinear_f64": [_P] * 3 + [_I] * 4 + [_P],
+    "atorch_lerp1d": [_P] * 3 + [_L, _I] + [_D] * 2 + [_P],
+    "atorch_lerp1d_sorted": [_P] * 4 + [_L, _I, _L, _I] + [_D] * 2 + [_P],
+    "atorch_interp1d": [_P] * 5 + [_L, _L] + [_I] * 3 + [_D] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

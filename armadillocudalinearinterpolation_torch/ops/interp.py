@@ -37,10 +37,15 @@ def interp1d(xq: torch.Tensor, xp: torch.Tensor,
 
 def lerp_uniform(xq: torch.Tensor, fp: torch.Tensor, x0: float,
                  dx: float) -> torch.Tensor:
-    """1-D lerp on the uniform grid ``x_i = x0 + i*dx``, clamped."""
+    """1-D lerp on the uniform grid ``x_i = x0 + i*dx``, clamped.
+
+    ``floor(u)`` is clamped in floating point before the integer conversion,
+    which would wrap a query at or past 2^63 cells (``1e30``, ``inf``) to
+    cell 0; the JAX conversion saturates instead."""
     n = fp.shape[0]
     u = (xq - x0) / dx
-    i0 = torch.clamp(torch.floor(u).long(), 0, n - 2)
+    i0 = torch.clamp(torch.clamp(torch.floor(u), -1.0, n - 1.0).long(), 0,
+                     n - 2)
     t = torch.clamp(u - i0.to(u.dtype), 0.0, 1.0)
     return lerp(fp[i0], fp[i0 + 1], t)
 

@@ -14,8 +14,14 @@ bilinear path (``interp2d``): ``bilinear_batched`` at BASELINE config 2
 kernel), its large-grid leg (8 x 1024x1024, 1M queries; ``auto`` -> the
 bin-window kernel) and its fp64 leg (``bilinear_batched_f64``, 16 x
 256x256); each kernel against its plain version and a host-double oracle,
-and timed.  Each phase prints one JSON object; any failed check raises and
-the script exits non-zero.  The last line is ``{"ok": true, "device":
+and timed.  Then the 1-D family (``interp1d``): ``lerp1d`` at BASELINE
+config 1 (1000 nodes, 10M queries; the uniform-grid kernel), at 65536 nodes
+with 2M queries (routed to the sorted-batch kernel) and ``make_interp1d``
+on 4096 non-uniform nodes with 2M queries (the non-uniform kernel on the
+sorted route), with small tables and extreme queries through all three
+kernels; each kernel against its plain version and ``numpy.interp`` in
+float64, and timed.  Each phase prints one JSON object; any failed check
+raises and the script exits non-zero.  The last line is ``{"ok": true, "device":
 {...}}``; before it come the card's name and power limit as ``nvidia-smi``
 prints them and a ``{"kernels": [...]}`` line.  Imports no JAX.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero and
@@ -64,6 +70,20 @@ INTERP_BARS = {"f32_vs_plain": 1e-6, "bf16_vs_exact": 0.05, "f64": 1e-13,
                "f32_vs_host_double": 1e-5}
 INTERP_SRC = f"{PKG}/csrc/interp2d.cu"
 INTERP_TPU = "armadillocudalinearinterpolation_tpu/ops/interp_pallas.py"
+# interp1d: BASELINE config 1 and the JAX bench's 1-D stages
+# (bench.py:152-243), as (nodes, queries)
+LERP_CONFIG1 = (1000, 10_000_000)      # sin table on [-3, 3], queries there
+LERP_64K = (65536, 2_097_152)          # the same, 64k nodes
+INTERP_NONUNIFORM = (4096, 2_097_152)  # gaps 0.1 + U[0, 1), fp sin(0.05 x)
+SMALL_TABLES = (2, 129, 4096)          # with out-of-range and extreme queries
+SMALL_QUERIES = 5001
+EXTREME = (1e30, -1e30, 1e12, -1e12, math.inf, -math.inf, math.nan)
+# kernel vs plain: the same operation order without fused multiply-adds
+# (expect 0.0); vs numpy.interp in float64 on the same f32 inputs: the JAX
+# tests' bars (tests/test_interp_pallas.py:40,103,117,135)
+INTERP1D_BARS = {"vs_plain": 1e-6, "vs_numpy": 1e-5,
+                 "dense_cluster_vs_numpy": 1e-4}
+INTERP1D_SRC = f"{PKG}/csrc/interp1d.cu"
 
 
 class CheckFailed(RuntimeError):
@@ -475,6 +495,259 @@ def interp2d(pt, torch, dev, smi: str):
     ]
 
 
+def sin_table(n):
+    """The bench's uniform table: ``sin`` at ``n`` nodes on [-3, 3], f32,
+    with its ``x0`` and ``dx``."""
+    import numpy as np
+    return np.sin(np.linspace(-3, 3, n)).astype(np.float32), -3.0, \
+        6.0 / (n - 1)
+
+
+def gap_nodes(n, seed, g0=0.1, scale=0.05):
+    """Non-uniform nodes from gaps ``g0 + U[0, 1)`` and ``fp = sin(scale *
+    xp)``, f32 (bench.py:220-224)."""
+    import numpy as np
+    gaps = (g0 + np.random.default_rng(seed).uniform(0, 1, n - 1)).astype(
+        np.float32)
+    xp = np.concatenate([[0.0], np.cumsum(gaps)]).astype(np.float32)
+    return xp, np.sin(scale * xp).astype(np.float32)
+
+
+def dense_cluster():
+    """tests/test_interp_pallas.py:125-131: 100 nodes within 2e-2."""
+    import numpy as np
+    xp = np.concatenate([np.linspace(0.0, 1.0, 50),
+                         1.0 + np.linspace(1e-4, 2e-2, 100),
+                         np.linspace(1.1, 10.0, 30)]).astype(np.float32)
+    fp = np.random.default_rng(0).standard_normal(xp.shape[0]).astype(
+        np.float32)
+    return xp, fp
+
+
+def uniform_queries(Q, lo, hi, seed, extreme=False):
+    """Seeded f32 queries uniform in ``[lo, hi)``, the extreme values
+    first if asked."""
+    import numpy as np
+    q = np.random.default_rng(seed).uniform(lo, hi, Q)
+    if extreme:
+        q[:len(EXTREME)] = EXTREME
+    return q.astype(np.float32)
+
+
+def nan_aware_err(got, want) -> float:
+    """Max |got - want| where ``want`` is not NaN; inf if the NaNs differ."""
+    import torch
+    got = torch.as_tensor(got).double().cpu()
+    want = torch.as_tensor(want).double().cpu()
+    if got.shape != want.shape or not torch.equal(got.isnan(), want.isnan()):
+        return math.inf
+    ok = ~want.isnan()
+    return float((got[ok] - want[ok]).abs().max()) if bool(ok.any()) else 0.0
+
+
+def interp1d(pt, torch, dev, smi: str):
+    """The 1-D family: the three legs through the public entry points with
+    the launch counts set to 0 just before each and read just after; each
+    kernel against its plain version and numpy.interp; timings."""
+    import numpy as np
+    from armadillocudalinearinterpolation_torch.ops import interp1d_cuda as i1
+    launches = i1.LAUNCHES
+    f32 = torch.float32
+
+    def on_card(a):
+        return torch.from_numpy(a).to(dev)
+
+    (n1, Q1), (nK, QK), (nN, QN) = LERP_CONFIG1, LERP_64K, INTERP_NONUNIFORM
+    fp1_h, x0, dx1 = sin_table(n1)
+    q1_h = uniform_queries(Q1, -3.0, 3.0, 10)
+    fpK_h, _, dxK = sin_table(nK)
+    qK_h = uniform_queries(QK, -3.0, 3.0, 11)
+    xpN_h, fpN_h = gap_nodes(nN, 12)
+    qN_h = uniform_queries(QN, -1.0, float(xpN_h[-1]) + 1.0, 13)
+    fp1, q1, fpK, qK = map(on_card, (fp1_h, q1_h, fpK_h, qK_h))
+    xpN, fpN, qN = map(on_card, (xpN_h, fpN_h, qN_h))
+    tableN = pt.make_interp1d(xpN, fpN)
+    torch.cuda.synchronize()
+
+    def drive(fn):
+        for k in launches:
+            launches[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(launches)
+
+    out1, route1 = drive(lambda: pt.lerp1d(q1, fp1, x0, dx1))
+    outK, routeK = drive(lambda: pt.lerp1d(qK, fpK, x0, dxK))
+    outN, routeN = drive(lambda: tableN(qN))
+    for name, out, Q in (("config 1", out1, Q1), ("64k", outK, QK),
+                         ("non-uniform", outN, QN)):
+        require(out.shape == (Q,) and out.dtype == f32
+                and bool(torch.isfinite(out).all()),
+                f"interp1d {name}: shape {tuple(out.shape)}, {out.dtype}, "
+                "or non-finite values")
+    for name, route, key in (("config 1", route1, "lerp1d"),
+                             ("64k", routeK, "lerp1d_sorted"),
+                             ("non-uniform", routeN, "interp1d")):
+        want = {k: int(k == key) for k in launches}
+        require(route == want, f"interp1d {name}: launched {route}, not "
+                f"one {key}")
+
+    # each kernel against its plain version at the legs' shapes, and
+    # against numpy.interp in float64 on the same f32 inputs
+    lims1, limsK = i1.uniform_lims(x0, dx1), i1.uniform_lims(x0, dxK)
+    nbK, nbN = i1._pow2_batches(QK), i1._pow2_batches(QN)
+    qsK, orderK = i1.sort_batches(qK, nbK)
+    qsN, orderN = i1.sort_batches(qN, nbN)
+    outK3 = i1.lerp1d_cuda(qK, fpK, *limsK)
+    outN_direct = i1.interp1d_cuda(tableN, qN)
+
+    def numpy_uniform(q_h, fp_h, dx):
+        return np.interp(q_h.astype(np.float64),
+                         x0 + dx * np.arange(fp_h.shape[0]),
+                         fp_h.astype(np.float64))
+
+    plain, ref, dense = "vs_plain", "vs_numpy", "dense_cluster_vs_numpy"
+    checks = {   # name: (kernel's result, reference, bar)
+        "lerp1d_vs_plain": (out1, i1.lerp1d_plain(q1, fp1, *lims1), plain),
+        "lerp1d_vs_numpy": (out1, numpy_uniform(q1_h, fp1_h, dx1), ref),
+        "lerp1d_sorted_vs_plain": (outK, i1.lerp1d_sorted_plain(
+            qsK, orderK, fpK, *limsK, QK), plain),
+        "lerp1d_sorted_vs_numpy": (outK, numpy_uniform(qK_h, fpK_h, dxK),
+                                   ref),
+        "lerp1d_at_64k_vs_plain": (outK3, i1.lerp1d_plain(qK, fpK, *limsK),
+                                   plain),
+        "lerp1d_at_64k_vs_sorted": (outK3, outK, plain),
+        "interp1d_sorted_vs_plain": (outN, i1.interp1d_plain(
+            tableN, qsN, orderN, QN), plain),
+        "interp1d_sorted_vs_numpy": (outN, np.interp(
+            qN_h.astype(np.float64), xpN_h.astype(np.float64),
+            fpN_h.astype(np.float64)), ref),
+        "interp1d_vs_plain": (outN_direct, i1.interp1d_plain(tableN, qN),
+                              plain),
+        "interp1d_vs_sorted": (outN_direct, outN, plain),
+    }
+    # small tables with out-of-range, extreme and NaN queries, through all
+    # three kernels (the sorted ones over padded batches)
+    small_launches = dict(launches)
+    for n in SMALL_TABLES:
+        fp_h, _, dx = sin_table(n)
+        q_h = uniform_queries(SMALL_QUERIES, -4.0, 4.0, n, extreme=True)
+        fp, q = on_card(fp_h), on_card(q_h)
+        lims = i1.uniform_lims(x0, dx)
+        qs, order = i1.sort_batches(q, 8)
+        want = numpy_uniform(q_h, fp_h, dx)
+        k3 = i1.lerp1d_cuda(q, fp, *lims)
+        k4 = i1.lerp1d_sorted_cuda(qs, order, fp, *lims, SMALL_QUERIES, 8)
+        checks[f"small_lerp1d_{n}_vs_plain"] = (
+            k3, i1.lerp1d_plain(q, fp, *lims), plain)
+        checks[f"small_lerp1d_{n}_vs_numpy"] = (k3, want, ref)
+        checks[f"small_lerp1d_sorted_{n}_vs_plain"] = (
+            k4, i1.lerp1d_sorted_plain(qs, order, fp, *lims, SMALL_QUERIES),
+            plain)
+        checks[f"small_lerp1d_sorted_{n}_vs_numpy"] = (k4, want, ref)
+        xp_h, fpn_h = gap_nodes(n, 20 + n)
+        table = pt.make_interp1d(on_card(xp_h), on_card(fpn_h))
+        q_h = uniform_queries(SMALL_QUERIES, -1.0, float(xp_h[-1]) + 1.0,
+                              n, extreme=True)
+        q = on_card(q_h)
+        qs, order = i1.sort_batches(q, 8)
+        want = np.interp(q_h.astype(np.float64), xp_h.astype(np.float64),
+                         fpn_h.astype(np.float64))
+        k5 = i1.interp1d_cuda(table, q)
+        k5s = i1.interp1d_cuda(table, qs, order, SMALL_QUERIES)
+        checks[f"small_interp1d_{n}_vs_plain"] = (
+            k5, i1.interp1d_plain(table, q), plain)
+        checks[f"small_interp1d_{n}_vs_numpy"] = (k5, want, ref)
+        checks[f"small_interp1d_sorted_{n}_vs_plain"] = (
+            k5s, i1.interp1d_plain(table, qs, order, SMALL_QUERIES), plain)
+        checks[f"small_interp1d_sorted_{n}_vs_numpy"] = (k5s, want, ref)
+    xp_h, fpn_h = dense_cluster()
+    table = pt.make_interp1d(on_card(xp_h), on_card(fpn_h))
+    q_h = uniform_queries(7777, 0.9, 1.2, 14)
+    k5 = i1.interp1d_cuda(table, on_card(q_h))
+    checks["dense_cluster_vs_plain"] = (
+        k5, i1.interp1d_plain(table, on_card(q_h)), plain)
+    checks["dense_cluster_vs_numpy"] = (k5, np.interp(
+        q_h.astype(np.float64), xp_h.astype(np.float64),
+        fpn_h.astype(np.float64)), dense)
+    torch.cuda.synchronize()
+    small_launches = {k: launches[k] - small_launches[k] for k in launches}
+    require(small_launches == {"lerp1d": 3, "lerp1d_sorted": 3,
+                               "interp1d": 7},
+            f"interp1d small tables: launched {small_launches}")
+
+    bars = INTERP1D_BARS
+    errs = {}
+    for key, (got, want, bar) in checks.items():
+        errs[key] = nan_aware_err(got, want)
+        require(errs[key] <= bars[bar],
+                f"interp1d {key}: {errs[key]} > {bars[bar]}")
+
+    # times, kernel beside plain on the same inputs: (call, queries)
+    calls = {
+        "lerp1d": (lambda: i1.lerp1d_cuda(q1, fp1, *lims1), Q1),
+        "lerp1d_plain": (lambda: i1.lerp1d_plain(q1, fp1, *lims1), Q1),
+        "config1_entry": (lambda: pt.lerp1d(q1, fp1, x0, dx1), Q1),
+        "lerp1d_sorted": (lambda: i1.lerp1d_sorted_cuda(
+            qsK, orderK, fpK, *limsK, QK, nbK), QK),
+        "lerp1d_sorted_plain": (lambda: i1.lerp1d_sorted_plain(
+            qsK, orderK, fpK, *limsK, QK), QK),
+        "sort_64k": (lambda: i1.sort_batches(qK, nbK), QK),
+        "64k_entry": (lambda: pt.lerp1d(qK, fpK, x0, dxK), QK),
+        "lerp1d_at_64k": (lambda: i1.lerp1d_cuda(qK, fpK, *limsK), QK),
+        "lerp1d_at_64k_plain": (lambda: i1.lerp1d_plain(qK, fpK, *limsK),
+                                QK),
+        "interp1d_sorted": (lambda: i1.interp1d_cuda(
+            tableN, qsN, orderN, QN), QN),
+        "interp1d_sorted_plain": (lambda: i1.interp1d_plain(
+            tableN, qsN, orderN, QN), QN),
+        "sort_nonuniform": (lambda: i1.sort_batches(qN, nbN), QN),
+        "nonuniform_entry": (lambda: tableN(qN), QN),
+        "interp1d": (lambda: i1.interp1d_cuda(tableN, qN), QN),
+        "interp1d_plain": (lambda: i1.interp1d_plain(tableN, qN), QN),
+    }
+    # a back-to-back run holds 20 outputs of 40 MB at config 1: grow the
+    # caching allocator first, so that no timing pays for cudaMalloc
+    timed(calls["lerp1d"][0], torch)
+    times = {k: timed(fn, torch) for k, (fn, _) in calls.items()}
+    rate = {k: Q / (times[k][0] * 1e-3) / 1e9 for k, (_, Q) in calls.items()}
+    row = {"phase": "interp1d",
+           "shapes": {"config1": LERP_CONFIG1, "64k": LERP_64K,
+                      "nonuniform": INTERP_NONUNIFORM,
+                      "small_tables": SMALL_TABLES},
+           "launches": {"config1": route1, "64k": routeK,
+                        "nonuniform": routeN, "small": small_launches},
+           "n_batches": {"64k": nbK, "nonuniform": nbN},
+           "nonuniform_S": tableN.S, "nonuniform_m": tableN.m,
+           "max_abs_err": errs, "bars": bars,
+           "ms_median_of_20": {k: v[0] for k, v in times.items()},
+           "ms_back_to_back_mean_of_20": {k: v[1] for k, v in times.items()},
+           "sort_share_of_entry": {
+               "64k": times["sort_64k"][0] / times["64k_entry"][0],
+               "nonuniform": (times["sort_nonuniform"][0]
+                              / times["nonuniform_entry"][0])},
+           "gq_per_s": rate, "card": smi}
+    emit(row)
+
+    def entry(name, line, key, launched, err_keys):
+        return {"name": name, "route": "cuda", "source": INTERP1D_SRC,
+                "replaces": f"{INTERP_TPU}:{line}", "launches": launched,
+                "max_abs_err": max(errs[k] for k in err_keys),
+                "ms": times[key][0], "plain_ms": times[key + "_plain"][0]}
+
+    def vs_plain(part):
+        return [k for k in errs if part in k and k.endswith("_vs_plain")]
+
+    return [
+        entry("lerp1d_kernel", 246, "lerp1d", route1["lerp1d"],
+              [k for k in vs_plain("lerp1d_") if "sorted" not in k]),
+        entry("lerp1d_sorted_kernel", 138, "lerp1d_sorted",
+              routeK["lerp1d_sorted"], vs_plain("lerp1d_sorted")),
+        entry("interp1d_kernel", 344, "interp1d_sorted", routeN["interp1d"],
+              vs_plain("interp1d") + ["dense_cluster_vs_plain"]),
+    ]
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from "
@@ -526,9 +799,10 @@ def main() -> int:
     kernels["plain_ms"] = m["plain_evolve_ms_median_of_3"]
 
     interp_kernels = interp2d(pt, torch, dev, smi)
+    interp1d_kernels = interp1d(pt, torch, dev, smi)
 
     print(smi, flush=True)
-    emit({"kernels": [kernels, *interp_kernels]})
+    emit({"kernels": [kernels, *interp_kernels, *interp1d_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -120,6 +120,7 @@ def test_port_never_imports_jax():
     code = ("import sys, armadillocudalinearinterpolation_torch as p; "
             "import armadillocudalinearinterpolation_torch.interop; "
             "import armadillocudalinearinterpolation_torch.ops.interp_cuda; "
+            "import armadillocudalinearinterpolation_torch.ops.interp1d_cuda; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'armadillocudalinearinterpolation_tpu'))); "
