@@ -10,7 +10,10 @@ are the first slice ported; batched 2-D bilinear interpolation
 (``ops/interp_cuda.py``: f32 gather and bin-window kernels, native fp64,
 ``csrc/interp2d.cu``) is the second; the 1-D interpolation family
 (``ops/interp1d_cuda.py``: uniform-grid, sorted-batch and non-uniform
-lerp, ``csrc/interp1d.cu``) is the third.  This package never imports JAX.
+lerp, ``csrc/interp1d.cu``) is the third; the staged Newton to
+``|F| <= 1e-8`` (the evolve kernel's firing-order log, the fp64 schedule
+replay kernel ``csrc/replay.cu``, the frozen-schedule map and
+``newton_solve_staged``) is the fourth.  This package never imports JAX.
 """
 
 from .config import ModelConfig, MapParams, NewtonConfig
@@ -19,6 +22,9 @@ from .model.lift import lift, initial_spike_indices
 from .model.events import event_time
 from .model.evolve import EvolveResult, evolve_ensemble
 from .model.evolve_cuda import evolve_ensemble_cuda
+from .model.replay import (compute_schedule, replay_events,
+                           evolve_ensemble_replay)
+from .model.replay_cuda import replay_events_cuda
 from .model.restrict import restrict_positions, masked_ensemble_mean
 from .model.emap import (
     z_to_u,
@@ -27,10 +33,15 @@ from .model.emap import (
     event_driven_map,
     make_residual_fn,
     MapDiagnostics,
+    compute_discrete_outcome,
+    frozen_schedule_map,
+    frozen_schedule_map_batched,
 )
 from .solvers.criterion import residual_norm_criterion, relative_criterion
 from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
-                             print_iteration_table, NewtonResult)
+                             print_iteration_table, NewtonResult,
+                             frozen_jacobian_polish)
+from .solvers.staged import newton_solve_frozen, newton_solve_staged
 from .ops.interp_cuda import bilinear_batched, bilinear_batched_f64
 from .ops.interp1d_cuda import lerp1d, lerp1d_binned, make_interp1d
 from .analysis.stability import (
@@ -55,6 +66,10 @@ __all__ = [
     "EvolveResult",
     "evolve_ensemble",
     "evolve_ensemble_cuda",
+    "compute_schedule",
+    "replay_events",
+    "evolve_ensemble_replay",
+    "replay_events_cuda",
     "restrict_positions",
     "masked_ensemble_mean",
     "z_to_u",
@@ -63,6 +78,9 @@ __all__ = [
     "event_driven_map",
     "make_residual_fn",
     "MapDiagnostics",
+    "compute_discrete_outcome",
+    "frozen_schedule_map",
+    "frozen_schedule_map_batched",
     "residual_norm_criterion",
     "relative_criterion",
     "newton_solve",
@@ -70,6 +88,9 @@ __all__ = [
     "central_fd_jacobian",
     "print_iteration_table",
     "NewtonResult",
+    "frozen_jacobian_polish",
+    "newton_solve_frozen",
+    "newton_solve_staged",
     "ProblemType",
     "compute_eigenvalues",
     "count_unstable",

@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and load them with ``ctypes``.
 
 The sources in ``csrc/*.cu`` carry a plain ``extern "C"`` interface and
-include no PyTorch headers, so ``nvcc`` compiles each in seconds; the
-sources compile in parallel, one ``nvcc`` each, and one more call links
-them.  The library lands in ``build/kernels/libatorch_kernels_<hash>.so``
-at the root of the checkout, keyed by a hash of the sources and the flags,
+include no PyTorch headers (only the shared device code of
+``csrc/*.cuh``), so ``nvcc`` compiles each in seconds; the sources compile
+in parallel, one ``nvcc`` each, and one more call links them.  The library
+lands in ``build/kernels/libatorch_kernels_<hash>.so`` at the root of the
+checkout, keyed by a hash of the sources, the headers and the flags,
 so an edited source rebuilds and an unchanged one loads the existing
 library.  Nothing here runs at import time.
 """
@@ -31,8 +32,10 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # argument types of every exported function
 _SIGNATURES = {
-    "atorch_evolve_f32": [_P] * 10 + [_I] * 5 + [_D] * 10 + [_P],
-    "atorch_evolve_f64": [_P] * 10 + [_I] * 5 + [_D] * 10 + [_P],
+    "atorch_evolve_f32": [_P] * 11 + [_I] * 6 + [_D] * 10 + [_P],
+    "atorch_evolve_f64": [_P] * 11 + [_I] * 6 + [_D] * 10 + [_P],
+    "atorch_replay_f32": [_P] * 12 + [_I] * 8 + [_D] * 5 + [_P],
+    "atorch_replay_f64": [_P] * 12 + [_I] * 8 + [_D] * 5 + [_P],
     "atorch_bilinear_gather": [_P] * 3 + [_I] * 5 + [_P],
     "atorch_bilinear_binned": [_P] * 5 + [_I] * 9 + [_P],
     "atorch_bilinear_f64": [_P] * 3 + [_I] * 4 + [_P],
@@ -59,7 +62,7 @@ def nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

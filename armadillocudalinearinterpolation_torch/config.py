@@ -33,8 +33,10 @@ class ModelConfig:
       t_horizon: restriction time horizon ``T``.
       root_tol: event-time Newton tolerance.
       counter_max: event-time Newton iteration cap.
-      max_events: event-log bound of the schedule replay (not yet ported);
-        validated for parity with the JAX package.
+      max_events: event-log bound of the schedule replay: the firing-order
+        log of the f32 discovery pass holds ``max_events`` rounded up to a
+        multiple of 128 events per row, and a row with more events is
+        rejected by the replay (:mod:`.model.replay`).
       evolve_window: lanes of the windowed event-time root-find (0 = all
         lanes).  Validated as in the JAX package; the evolve here always
         evaluates every lane, which gives the same results because the
@@ -130,7 +132,9 @@ class NewtonConfig:
     damping: float = 1.0
     print_output: bool = False
     # "forward" FD (reference), "central" FD, or "exact" (not ported yet:
-    # newton_solve raises on it).
+    # newton_solve raises on it); "frozen" and "frozen-fwd" are the central
+    # and forward frozen-schedule stencils that only the staged solver's
+    # accurate stage takes (solvers/staged.py::newton_solve_frozen).
     fd_mode: str = "forward"
     # Stop once the residual norm exceeds divergence_factor * initial norm.
     divergence_factor: float = float("inf")

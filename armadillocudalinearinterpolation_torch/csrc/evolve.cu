@@ -10,7 +10,7 @@
 // advance and ring kick (five exp), so the loop is bound by transcendentals;
 // and each event needs one block-wide argmin over (time, index) pairs with
 // its __syncthreads before any lane can advance.  A row runs ~400 events one
-// after another.
+// after another at N=512, ~3500 at N=4096.
 //
 // Layout: one CTA per row (one point x one realisation), as in the CUDA
 // original's EvolveKernel.  v, s and beta of the row stay in shared memory
@@ -20,78 +20,26 @@
 // (time, index) pairs, then one warp over the per-warp winners: three
 // barriers per event.  One thread keeps the row's bookkeeping.
 //
+// Firing-order log (evolve_pallas.py:148-154,475-482): given a non-null
+// `sched`, the bookkeeping thread writes sched[row * E + k] = j for the
+// row's event k < E, so the log holds only the lanes the row really fired;
+// a row with more than E events keeps counting n_events and logs nothing
+// past column E - 1 (the replay rejects it through n_events > E).  The
+// wrapper zero-fills the log.
+//
 // Semantics follow model/events.py and model/evolve.py operation by
-// operation.  Build without --use_fast_math (it changes exp and pow and
-// flushes denormals) and with --fmad=false, so that no multiply-add is fused
-// where the plain version rounds twice.
+// operation (the shared per-lane arithmetic is in events.cuh).
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
+
+#include "events.cuh"
 
 namespace {
 
-struct Consts {
-  double vth, drive, gap, a1, a2, neg_b1, neg_b2, dx, t_horizon, root_tol;
-  int counter_max;
-};
-
 // A row that has not stopped after this many events is stopped unaccepted
 // rather than left to spin: t grows by a nonnegative dt per event, and a
-// physical row needs a few hundred.
+// physical row needs a few thousand.
 constexpr int kEventGuard = 1 << 24;
-
-// The math library's full-precision functions, pinned per type (what
-// PyTorch's elementwise kernels call).
-__device__ __forceinline__ float xexp(float x) { return expf(x); }
-__device__ __forceinline__ double xexp(double x) { return ::exp(x); }
-__device__ __forceinline__ float xpow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double xpow(double x, double y) {
-  return ::pow(x, y);
-}
-__device__ __forceinline__ float xabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double xabs(double x) { return ::fabs(x); }
-
-template <typename T>
-__device__ __forceinline__ T membrane_f(T v, T s, T b, T emt, T e1mb,
-                                        T drive, T vth) {
-  // v0 e^{-t} + I (1 - e^{-t}) + s0 e^{-t} / (1 - b) (e^{(1-b)t} - 1) - vth
-  return v * emt + drive * (T(1) - emt) + s * emt / (T(1) - b) * (e1mb - T(1))
-         - vth;
-}
-
-template <typename T>
-__device__ __forceinline__ T membrane_df(T v, T s, T b, T emt, T embt,
-                                         T drive) {
-  return drive * emt - v * emt + s * emt * embt
-         + (s * emt * (embt - T(1))) / (b - T(1));
-}
-
-// Next firing time of one lane, |t| + 100 (1 - decision).
-template <typename T>
-__device__ T event_time(T v, T s, T b, const Consts& c) {
-  const T vth = T(c.vth), drive = T(c.drive), gap = T(c.gap);
-  const T tol = T(c.root_tol);
-  // fire/no-fire decision; pow of a negative base is NaN and NaN compares
-  // false, so such a lane does not fire
-  const T q = xpow(s / gap, T(1) / b);
-  const T rhs = vth * q + drive * (T(1) - q) - gap / (b - T(1)) * (s / gap - q);
-  const bool decision = v > rhs;
-  // e^{(1-b)t} and e^{-t(b-1)} are the same number, so f and f' share the
-  // two exponentials of the current iterate
-  T t = T(0);
-  T emt = xexp(-t);
-  T e1 = xexp((T(1) - b) * t);
-  T f = membrane_f(v, s, b, emt, e1, drive, vth) * T(decision ? 1 : 0);
-  for (int k = 0; k < c.counter_max && xabs(f) > tol; ++k) {
-    const T df = membrane_df(v, s, b, emt, e1, drive);
-    t = t - f / df;
-    emt = xexp(-t);
-    e1 = xexp((T(1) - b) * t);
-    f = membrane_f(v, s, b, emt, e1, drive, vth);
-  }
-  return xabs(t) + T(100) * (T(1) - T(decision ? 1 : 0));
-}
 
 // (time, index) order of torch.argmin: NaN first, then smaller time, then
 // lower index.
@@ -124,7 +72,8 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
                               int* __restrict__ crossed_ind_out,
                               T* __restrict__ crossed_time_out,
                               bool* __restrict__ accept_out,
-                              int* __restrict__ n_events_out) {
+                              int* __restrict__ n_events_out,
+                              int* __restrict__ sched, int E) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* v = reinterpret_cast<T*>(smem);
   T* s = v + N;
@@ -216,24 +165,11 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
     if (tid == 0) {
       const T t_new = scal[0] + dt;
       scal[0] = t_new;
-      int mm = 0, dmin = abs(j - last_ind[0]);
-      for (int m = 1; m < M; ++m) {
-        const int dm = abs(j - last_ind[m]);
-        if (dm < dmin) {
-          dmin = dm;
-          mm = m;
-        }
-      }
-      if (!crossed[mm]) {
-        if (t_new > T_h) {
-          crossed_time[mm] = t_new;
-          crossed_ind[mm] = j;
-          crossed[mm] = 1;
-        } else {
-          last_time[mm] = t_new;
-          last_ind[mm] = j;
-        }
-      }
+      classify_event(j, t_new, T_h, M, last_ind, last_time, crossed_ind,
+                     crossed_time, crossed);
+      // firing-order log: event k = iscal[2], written before the count moves
+      if (sched != nullptr && iscal[2] < E)
+        sched[(size_t)row * E + iscal[2]] = j;
       const int nev = iscal[2] + 1;
       iscal[2] = nev;
       bool all_crossed = true;
@@ -268,23 +204,13 @@ template <typename T>
 int launch(const void* v0, const void* s0, const void* init_ind,
            const void* beta, void* last_ind, void* last_time,
            void* crossed_ind, void* crossed_time, void* accept,
-           void* n_events, int P, int R, int N, int M, const Consts& c,
-           void* stream) {
-  if (P < 1 || R < 1 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
+           void* n_events, void* sched, int P, int R, int N, int M, int E,
+           const Consts& c, void* stream) {
+  if (P < 1 || R < 1 || N < 1 || M < 1 || (sched != nullptr && E < 1))
+    return (int)cudaErrorInvalidValue;
   const size_t shmem = smem_bytes<T>(N, M);
-  int dev = 0, max_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (shmem > (size_t)max_optin) return (int)cudaErrorInvalidValue;
-  if (shmem > 48 * 1024) {
-    err = cudaFuncSetAttribute(evolve_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)shmem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = set_shared_memory(evolve_kernel<T>, shmem);
+  if (err != 0) return err;
   const int threads = N >= 256 ? 256 : ((N + 31) / 32) * 32;
   const long long rows = (long long)P * R;
   if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -293,7 +219,8 @@ int launch(const void* v0, const void* s0, const void* init_ind,
       static_cast<const int*>(init_ind), static_cast<const T*>(beta), R, N,
       M, c, static_cast<int*>(last_ind), static_cast<T*>(last_time),
       static_cast<int*>(crossed_ind), static_cast<T*>(crossed_time),
-      static_cast<bool*>(accept), static_cast<int*>(n_events));
+      static_cast<bool*>(accept), static_cast<int*>(n_events),
+      static_cast<int*>(sched), E);
   return (int)cudaGetLastError();
 }
 
@@ -303,15 +230,16 @@ int launch(const void* v0, const void* s0, const void* init_ind,
   extern "C" int NAME(const void* v0, const void* s0, const void* init_ind,   \
                       const void* beta, void* last_ind, void* last_time,      \
                       void* crossed_ind, void* crossed_time, void* accept,    \
-                      void* n_events, int P, int R, int N, int M,             \
-                      int counter_max, double vth, double drive, double gap,  \
+                      void* n_events, void* sched, int P, int R, int N,       \
+                      int M, int E, int counter_max, double vth,              \
+                      double drive, double gap,                               \
                       double a1, double a2, double b1, double b2, double dx,  \
                       double t_horizon, double root_tol, void* stream) {      \
     const Consts c{vth, drive, gap, a1, a2, -b1, -b2, dx, t_horizon,          \
                    root_tol, counter_max};                                    \
     return launch<T>(v0, s0, init_ind, beta, last_ind, last_time,             \
-                     crossed_ind, crossed_time, accept, n_events, P, R, N, M, \
-                     c, stream);                                              \
+                     crossed_ind, crossed_time, accept, n_events, sched, P,   \
+                     R, N, M, E, c, stream);                                  \
   }
 
 ATORCH_EVOLVE(atorch_evolve_f32, float)

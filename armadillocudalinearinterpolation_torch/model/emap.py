@@ -10,6 +10,13 @@ numbers) and differ in ``v0``, ``s0`` and the initial spike indices.
 Common random numbers: :func:`make_residual_fn` draws ``beta`` once and
 reuses it for every evaluation, as the reference reseeds its generator to a
 fixed seed before every evaluation.
+
+The accurate map of the staged solver runs on the ``"replay"`` backend (an
+f32 discovery pass, then the fp64 replay of its firing order,
+:mod:`.replay`).  Between evaluations the map's only non-smooth content is
+that discrete outcome: :func:`compute_discrete_outcome` returns it at one
+point, and :func:`frozen_schedule_map_batched` evaluates the smooth piece
+around it at a whole stencil of points in one replay.
 """
 
 from __future__ import annotations
@@ -22,9 +29,10 @@ from ..config import ModelConfig, MapParams
 from .evolve import EvolveResult, evolve_ensemble
 from .evolve_cuda import evolve_ensemble_cuda
 from .lift import initial_spike_indices, lift
+from .replay import compute_schedule, evolve_ensemble_replay, select_replay
 from .restrict import masked_ensemble_mean, restrict_positions
 
-EVOLVE_BACKENDS = ("auto", "cuda", "torch")
+EVOLVE_BACKENDS = ("auto", "cuda", "torch", "replay")
 
 
 class MapDiagnostics(NamedTuple):
@@ -67,10 +75,15 @@ def sample_beta(cfg: ModelConfig, params: MapParams,
 def select_evolve(evolve_backend: str, device: torch.device) -> Callable:
     """Resolve the evolve backend: ``"auto"`` is the kernel for CUDA tensors
     and the plain version for CPU ones; ``"cuda"`` is the kernel (which
-    raises on CPU tensors); ``"torch"`` is the plain version anywhere."""
+    raises on CPU tensors); ``"torch"`` is the plain version anywhere;
+    ``"replay"`` is the two-pass evolve (f32 discovery, fp64 replay: K1
+    with its log and K2 for CUDA tensors, the plain versions for CPU
+    ones)."""
     if evolve_backend not in EVOLVE_BACKENDS:
         raise ValueError(f"unknown evolve_backend: {evolve_backend!r} "
                          f"(expected one of {EVOLVE_BACKENDS})")
+    if evolve_backend == "replay":
+        return evolve_ensemble_replay
     if evolve_backend == "cuda" or (evolve_backend == "auto"
                                     and device.type == "cuda"):
         return evolve_ensemble_cuda
@@ -115,7 +128,7 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
       Z: ``(n_spikes,)`` reduced state ``(c, z_1, ..)``, or a ``(P,
         n_spikes)`` stack evaluated in one evolve launch.
       with_diagnostics: also return :class:`MapDiagnostics`.
-      evolve_backend: ``"auto"``, ``"cuda"`` or ``"torch"``
+      evolve_backend: ``"auto"``, ``"cuda"``, ``"torch"`` or ``"replay"``
         (:func:`select_evolve`).
 
     Returns:
@@ -147,6 +160,55 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
               else d[0] for d in diag))
         return f[0], diag
     return f, diag
+
+
+def compute_discrete_outcome(cfg: ModelConfig, params: MapParams,
+                             beta: torch.Tensor, Z: torch.Tensor):
+    """The map's discrete outcome at one point ``Z`` (``(n_spikes,)``):
+    ``(schedule, n_events, init_ind)``, the ``(R, E)`` int32 firing order
+    of the f32 discovery pass, its ``(R,)`` event counts and the ``(M,)``
+    seeding indices, for :func:`frozen_schedule_map_batched`."""
+    Zs = Z.to(dtype=cfg.torch_dtype, device=beta.device)[None, :]
+    init_ind = initial_spike_indices(cfg, Zs)
+    v0, s0 = lift(cfg, params, z_to_u(Zs))
+    sched, n_ev = compute_schedule(cfg, v0, s0, beta, init_ind)
+    return sched, n_ev, init_ind[0]
+
+
+def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
+                                beta: torch.Tensor, Zs: torch.Tensor,
+                                sched: torch.Tensor, n_sched: torch.Tensor,
+                                init_ind: torch.Tensor) -> torch.Tensor:
+    """The smooth piece of ``F`` around one frozen discrete outcome, at a
+    ``(P, n_spikes)`` stack of points, in ONE replay of ``P * R`` rows.
+
+    Every point is lifted, then replays the shared ``schedule`` with the
+    shared seeding ``init_ind`` (not its own: recomputing the indices per
+    point would be another function, and an FD stencil across it would jump
+    across grid cells).  At the point the outcome was discovered at, this
+    is ``event_driven_map(..., evolve_backend="replay")``.
+
+    Returns:
+      ``(P, n_spikes)`` residuals.
+    """
+    P, R, M = Zs.shape[0], cfg.n_real, cfg.n_spikes
+    U = z_to_u(Zs.to(dtype=cfg.torch_dtype, device=beta.device))
+    v0, s0 = lift(cfg, params, U)
+    replay = select_replay(beta.device)
+    res = replay(cfg, sched, n_sched, v0.contiguous(), s0.contiguous(),
+                 beta, init_ind)
+    positions = restrict_positions(cfg, res).reshape(P, R, M)
+    u_mean, _ = masked_ensemble_mean(positions, res.accept.reshape(P, R))
+    return assemble_residual(cfg, U, u_mean)
+
+
+def frozen_schedule_map(cfg: ModelConfig, params: MapParams,
+                        beta: torch.Tensor, Z: torch.Tensor,
+                        sched: torch.Tensor, n_sched: torch.Tensor,
+                        init_ind: torch.Tensor) -> torch.Tensor:
+    """:func:`frozen_schedule_map_batched` at one point ``(n_spikes,)``."""
+    return frozen_schedule_map_batched(cfg, params, beta, Z[None, :], sched,
+                                       n_sched, init_ind)[0]
 
 
 def make_residual_fn(cfg: ModelConfig, params: MapParams,

@@ -14,13 +14,19 @@ One loop over ``(rows, N)`` tensors with a per-row live mask.  A row is one
   5. a row stops when all its trajectories have crossed ``T`` or ``t``
      reaches ``2T``; it is accepted only if all trajectories crossed.
 
+With ``record_schedule = E > 0`` the loop also logs the firing order, the
+input of the schedule replay (:mod:`.replay`): event ``k < E`` of a row
+writes its lane at column ``k``; a row with more events keeps counting
+``n_events`` and logs nothing more (the replay rejects it through
+``n_events > E``); columns past a row's events stay 0.
+
 This is the plain version of the CUDA kernel in ``csrc/evolve.cu``
 (:mod:`.evolve_cuda`): the CPU path, and the kernel's oracle on the card.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -61,20 +67,26 @@ def check_evolve_inputs(cfg: ModelConfig, v0, s0, beta, init_ind) -> None:
 
 
 def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
-                    beta: torch.Tensor, init_ind: torch.Tensor
-                    ) -> EvolveResult:
+                    beta: torch.Tensor, init_ind: torch.Tensor,
+                    record_schedule: int = 0
+                    ) -> Union[EvolveResult,
+                               Tuple[EvolveResult, torch.Tensor]]:
     """Ensemble evolve of ``P`` points x ``R`` realisations.
 
     Args:
       v0, s0: ``(P, N)`` lifted states, one per point.
       beta: ``(R, N)`` per-realisation synaptic rates (shared by all points).
       init_ind: ``(P, M)`` int32 initial spike indices, one row per point.
+      record_schedule: ``E > 0`` also returns the ``(P * R, E)`` int32
+        firing-order log.
 
     Returns:
       :class:`EvolveResult` over ``P * R`` rows; row ``p * R + r`` is point
-      ``p`` under realisation ``r``.
+      ``p`` under realisation ``r``.  With ``record_schedule`` the pair
+      ``(result, schedule)``.
     """
     check_evolve_inputs(cfg, v0, s0, beta, init_ind)
+    E = int(record_schedule)
     dt_, dev = v0.dtype, v0.device
     P, N = v0.shape
     R, M = beta.shape[0], cfg.n_spikes
@@ -90,6 +102,7 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
     crossed_time = torch.full((rows, M), 2.0 * T, dtype=dt_, device=dev)
     crossed = torch.zeros(rows, M, dtype=torch.bool, device=dev)
     n_events = torch.zeros(rows, dtype=torch.int32, device=dev)
+    sched = torch.zeros(rows, max(E, 0), dtype=torch.int32, device=dev)
     lane = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
     traj = torch.arange(M, device=dev)[None, :]
 
@@ -129,8 +142,14 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
         crossed_ind = torch.where(is_cross, jc, crossed_ind)
         crossed_time = torch.where(is_cross, tc, crossed_time)
         crossed = crossed | is_cross
+        if E > 0:
+            log = live & (n_events < E)
+            col = torch.clamp(n_events, max=E - 1).long()[:, None]
+            sched.scatter_(1, col, torch.where(
+                log, j, torch.gather(sched, 1, col)[:, 0])[:, None])
         n_events = n_events + live.to(torch.int32)
 
-    return EvolveResult(last_ind=last_ind, last_time=last_time,
-                        crossed_ind=crossed_ind, crossed_time=crossed_time,
-                        accept=crossed.all(dim=1), n_events=n_events)
+    result = EvolveResult(last_ind=last_ind, last_time=last_time,
+                          crossed_ind=crossed_ind, crossed_time=crossed_time,
+                          accept=crossed.all(dim=1), n_events=n_events)
+    return (result, sched) if E > 0 else result

@@ -6,9 +6,13 @@
 device.  It launches on the current stream, does not synchronise, and
 raises on any input the kernel does not take; there is no fallback.
 ``LAUNCHES`` counts its launches (read it as ``evolve_cuda.LAUNCHES``).
+``record_schedule = E > 0`` adds the kernel's firing-order log, as the
+plain version returns it.
 """
 
 from __future__ import annotations
+
+from typing import Tuple, Union
 
 import torch
 
@@ -24,20 +28,28 @@ _ENTRY = {torch.float32: "atorch_evolve_f32",
 
 def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
                          s0: torch.Tensor, beta: torch.Tensor,
-                         init_ind: torch.Tensor) -> EvolveResult:
+                         init_ind: torch.Tensor, record_schedule: int = 0
+                         ) -> Union[EvolveResult,
+                                    Tuple[EvolveResult, torch.Tensor]]:
     """Ensemble evolve of ``P`` points x ``R`` realisations on the card.
 
     Args:
       v0, s0: ``(P, N)`` lifted states.
       beta: ``(R, N)`` per-realisation rates.
       init_ind: ``(P, M)`` int32 initial spike indices.
+      record_schedule: ``E > 0`` also returns the ``(P * R, E)`` int32
+        firing-order log.
 
     Returns:
       :class:`EvolveResult` over ``P * R`` rows, row ``p * R + r`` for
-      point ``p`` and realisation ``r``.
+      point ``p`` and realisation ``r``; with ``record_schedule`` the pair
+      ``(result, schedule)``.
     """
     global LAUNCHES
     check_evolve_inputs(cfg, v0, s0, beta, init_ind)
+    E = int(record_schedule)
+    if E < 0:
+        raise ValueError(f"record_schedule must be >= 0; got {E}")
     if v0.device.type != "cuda":
         raise ValueError("evolve_ensemble_cuda needs CUDA tensors; got "
                          f"{v0.device} (use the plain evolve on the CPU)")
@@ -54,6 +66,8 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
     crossed_time = torch.empty(P * R, M, dtype=dt_, device=dev)
     accept = torch.empty(P * R, dtype=torch.bool, device=dev)
     n_events = torch.empty(P * R, dtype=torch.int32, device=dev)
+    sched = (torch.zeros(P * R, E, dtype=torch.int32, device=dev) if E
+             else None)
 
     lib = _build.load_library()
     with torch.cuda.device(dev):
@@ -63,11 +77,12 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
             beta.data_ptr(), last_ind.data_ptr(), last_time.data_ptr(),
             crossed_ind.data_ptr(), crossed_time.data_ptr(),
             accept.data_ptr(), n_events.data_ptr(),
-            P, R, N, M, cfg.counter_max,
+            sched.data_ptr() if E else None, P, R, N, M, E, cfg.counter_max,
             cfg.vth, cfg.drive, cfg.vth - cfg.drive, cfg.a1, cfg.a2, cfg.b1,
             cfg.b2, cfg.dx, cfg.t_horizon, cfg.root_tol, stream)
     _build.check(lib, code, "evolve kernel launch")
     LAUNCHES += 1
-    return EvolveResult(last_ind=last_ind, last_time=last_time,
-                        crossed_ind=crossed_ind, crossed_time=crossed_time,
-                        accept=accept, n_events=n_events)
+    result = EvolveResult(last_ind=last_ind, last_time=last_time,
+                          crossed_ind=crossed_ind, crossed_time=crossed_time,
+                          accept=accept, n_events=n_events)
+    return (result, sched) if E else result

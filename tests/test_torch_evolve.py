@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (INITIAL_GUESS, configs, jax_draw, jx, params, pt,
-                          to_numpy, to_torch)
+from torch_parity import (INITIAL_GUESS, configs, interpreted,  # noqa: F401
+                          jax_draw, jx, params, pt, to_numpy, to_torch)
 from armadillocudalinearinterpolation_torch.model import evolve_cuda
 
 # stack of P=4 points: the guess and its three forward-FD perturbations
@@ -54,19 +54,6 @@ def test_plain_evolve_matches_xla_evolve_f64():
                 err_msg=name)
     assert bool(res.accept.all())
     assert int(res.n_events.min()) > 100
-
-
-@pytest.fixture
-def interpreted(monkeypatch):
-    """The JAX package's Pallas evolve kernel through the Pallas
-    interpreter, as tests/test_evolve_pallas.py runs it on the CPU."""
-    import armadillocudalinearinterpolation_tpu.model.evolve_pallas as ep
-
-    monkeypatch.setattr(ep, "_INTERPRET", True)
-    monkeypatch.setattr(ep, "_BLOCK_ELEMENT_BUDGET", 8 * 512)
-    ep.evolve_ensemble_pallas.clear_cache()
-    yield ep
-    ep.evolve_ensemble_pallas.clear_cache()
 
 
 def test_plain_evolve_f32_matches_pallas_kernel_interpreted(interpreted):

@@ -121,6 +121,9 @@ def test_port_never_imports_jax():
             "import armadillocudalinearinterpolation_torch.interop; "
             "import armadillocudalinearinterpolation_torch.ops.interp_cuda; "
             "import armadillocudalinearinterpolation_torch.ops.interp1d_cuda; "
+            "import armadillocudalinearinterpolation_torch.model.replay; "
+            "import armadillocudalinearinterpolation_torch.model.replay_cuda; "
+            "import armadillocudalinearinterpolation_torch.solvers.staged; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'armadillocudalinearinterpolation_tpu'))); "

@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import armadillocudalinearinterpolation_tpu as jx
@@ -62,3 +63,16 @@ def jax_draw(jcfg, jparams, seed=0) -> np.ndarray:
     the draw both packages' maps use at that key."""
     return np.asarray(jax_sample_beta(jcfg, jparams,
                                       jax.random.PRNGKey(seed)))
+
+
+@pytest.fixture
+def interpreted(monkeypatch):
+    """The JAX package's Pallas evolve kernel through the Pallas
+    interpreter, as tests/test_evolve_pallas.py runs it on the CPU."""
+    import armadillocudalinearinterpolation_tpu.model.evolve_pallas as ep
+
+    monkeypatch.setattr(ep, "_INTERPRET", True)
+    monkeypatch.setattr(ep, "_BLOCK_ELEMENT_BUDGET", 8 * 512)
+    ep.evolve_ensemble_pallas.clear_cache()
+    yield ep
+    ep.evolve_ensemble_pallas.clear_cache()
