@@ -36,8 +36,9 @@ _SIGNATURES = {
     "atorch_evolve_f64": [_P] * 11 + [_I] * 6 + [_D] * 10 + [_P],
     "atorch_replay_f32": [_P] * 12 + [_I] * 8 + [_D] * 5 + [_P],
     "atorch_replay_f64": [_P] * 12 + [_I] * 8 + [_D] * 5 + [_P],
-    "atorch_bilinear_gather": [_P] * 3 + [_I] * 5 + [_P],
-    "atorch_bilinear_binned": [_P] * 5 + [_I] * 9 + [_P],
+    "atorch_bilinear_gather": [_P] * 3 + [_I] * 7 + [_P],
+    "atorch_bilinear_binning": [_P] * 5 + [_I] * 8 + [_P],
+    "atorch_bilinear_binned": [_P] * 5 + [_I] * 10 + [_P],
     "atorch_bilinear_f64": [_P] * 3 + [_I] * 4 + [_P],
     "atorch_lerp1d": [_P] * 3 + [_L, _I] + [_D] * 2 + [_P],
     "atorch_lerp1d_sorted": [_P] * 4 + [_L, _I, _L, _I] + [_D] * 2 + [_P],

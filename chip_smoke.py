@@ -13,14 +13,20 @@ bilinear path (``interp2d``): ``bilinear_batched`` at BASELINE config 2
 (64 grids of 256x256, 1M queries, f32; ``method="auto"`` -> the gather
 kernel), its large-grid leg (8 x 1024x1024, 1M queries; ``auto`` -> the
 bin-window kernel) and its fp64 leg (``bilinear_batched_f64``, 16 x
-256x256); each kernel against its plain version and a host-double oracle,
-and timed.  Then the 1-D family (``interp1d``): ``lerp1d`` at BASELINE
+256x256); which body of the gather kernel each leg ran (staged or direct);
+the device binning against the plain binning (equal offsets, the same ids
+in every bin, no sort kernel in the profiled ``auto`` call); each kernel and
+body against its plain version and a host-double oracle; times warm and
+with the L2 flushed before each call, device time by ``torch.profiler``
+beside ``grid_sample``'s, and the host time per wrapper call.  Then the 1-D
+family (``interp1d``): ``lerp1d`` at BASELINE
 config 1 (1000 nodes, 10M queries; the uniform-grid kernel), at 65536 nodes
 with 2M queries (routed to the sorted-batch kernel) and ``make_interp1d``
 on 4096 non-uniform nodes with 2M queries (the non-uniform kernel on the
 sorted route), with small tables and extreme queries through all three
 kernels; each kernel against its plain version and ``numpy.interp`` in
-float64, and timed.  Then the staged Newton to ``|F| <= 1e-8``
+float64, and timed, with ``grid_sample`` on a 1 x n image beside the
+uniform-grid kernels.  Then the staged Newton to ``|F| <= 1e-8``
 (``staged``) at BASELINE config 4 (N=4096, R=64, f64, sigma 0.1): the
 evolve kernel's firing-order log against the plain log, the replay kernel
 (K2) against the plain replay at 64 and 256 rows, the replay against the
@@ -83,6 +89,9 @@ INTERP_SRC = f"{PKG}/csrc/interp2d.cu"
 # operations per query of a bilinear lookup (clamps, floors, weights, three
 # lerps) and of a 1-D one; the interpolation bounds are set by the bytes
 BILINEAR_OPS_PER_QUERY = 21
+# operations per query of the binning: clamps, truncations, corner clamps,
+# the bin's divisions, minimums and index
+BIN_OPS_PER_QUERY = 14
 LERP_OPS_PER_QUERY = 10
 INTERP_TPU = "armadillocudalinearinterpolation_tpu/ops/interp_pallas.py"
 # interp1d: BASELINE config 1 and the JAX bench's 1-D stages
@@ -441,16 +450,75 @@ def timed(fn, torch, n=20):
     fn()
     torch.cuda.synchronize()
     single = statistics.median(cuda_ms(fn, torch)[0] for _ in range(n))
-    total, _ = cuda_ms(lambda: [fn() for _ in range(n)], torch)
+    # the second back-to-back run: the first grows the caching allocator to
+    # hold n outputs at once
+    for _ in range(2):
+        total, _ = cuda_ms(lambda: [fn() for _ in range(n)], torch)
     return single, total / n
 
 
+def timed_cold(fn, torch, flush, n=10):
+    """Median ms of ``n`` single calls, each after ``flush()`` has written
+    more than the 50 MB L2 (so the call finds its inputs in DRAM)."""
+    fn()
+    ms = []
+    for _ in range(n):
+        flush()
+        torch.cuda.synchronize()
+        ms.append(cuda_ms(fn, torch)[0])
+    return statistics.median(ms)
+
+
+def device_us(fn, torch, n=5):
+    """Device time per call in µs by ``torch.profiler`` (``n`` calls, all
+    the kernels each call launches), with the time by kernel name."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):     # a profile now and then records no device event
+        _, kern, _ = device_profile(lambda: [fn() for _ in range(n)], torch)
+        if kern:
+            break
+    require(bool(kern), "device_us: the profiler recorded no kernel")
+    return (sum(v[1] for v in kern.values()) / n,
+            {k: v[1] / n for k, v in kern.items()})
+
+
+def host_us(fn, torch, n=1000):
+    """Host µs per call of ``fn`` over ``n`` calls issued back to back at a
+    size where the device time is negligible (perf_counter)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def same_bin_members(torch, got, want):
+    """Whether two binnings with equal offsets hold the same query ids in
+    every bin (the order inside a bin is free)."""
+    B, Q = want.order.shape
+    k = torch.arange(Q, dtype=torch.int32, device=want.order.device).expand(
+        B, Q).contiguous()
+    bin_k = torch.searchsorted(want.offsets[:, 1:].contiguous(), k,
+                               right=True)
+
+    def keys(bins):
+        return torch.sort(bin_k * Q + bins.order.long(), dim=1).values
+    return bool(torch.equal(keys(got), keys(want)))
+
+
 def interp2d(pt, torch, dev, smi: str):
-    """The batched 2-D bilinear path: the three legs through the public
-    entry points with the launch counts set to 0 just before each and read
-    just after; each kernel against its plain version; timings."""
+    """The batched 2-D bilinear path: the legs through the public entry
+    points with the launch and body counts set to 0 just before each and
+    read just after; each kernel against its plain version; the device
+    binning against the plain binning; timings warm and with the L2
+    flushed, device time by the profiler, host time per call."""
     from armadillocudalinearinterpolation_torch.ops import interp_cuda as ic
-    launches = ic.LAUNCHES
+    launches, bodies = ic.LAUNCHES, ic.BODIES
     f32, f64 = torch.float32, torch.float64
     p32, g32 = interp_inputs(torch, dev, INTERP_F32, f32, 0)
     pL, gL = interp_inputs(torch, dev, INTERP_LARGE, f32, 1)
@@ -458,65 +526,105 @@ def interp2d(pt, torch, dev, smi: str):
     torch.cuda.synchronize()
 
     def drive(fn):
-        for k in launches:
-            launches[k] = 0
+        for d in (launches, bodies):
+            for k in d:
+                d[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, dict(launches)
+        return out, {k: v for k, v in {**launches, **bodies}.items() if v}
 
-    out32, route32 = drive(lambda: pt.bilinear_batched(p32, g32))
-    outL, routeL = drive(lambda: pt.bilinear_batched(pL, gL))
-    out64, route64 = drive(lambda: pt.bilinear_batched_f64(p64, g64))
-    for name, out, shape, dtype in (("config 2", out32, INTERP_F32, f32),
-                                    ("1024^2", outL, INTERP_LARGE, f32),
-                                    ("fp64", out64, INTERP_F64, f64)):
+    legs = {
+        "config2_auto": lambda: pt.bilinear_batched(p32, g32),
+        "config2_bf16": lambda: pt.bilinear_batched(p32, g32,
+                                                    precision="bf16"),
+        "large_auto": lambda: pt.bilinear_batched(pL, gL),
+        "large_full": lambda: pt.bilinear_batched(pL, gL, method="full"),
+        "f64": lambda: pt.bilinear_batched_f64(p64, g64),
+    }
+    outs, routes = {}, {}
+    for name, fn in legs.items():
+        outs[name], routes[name] = drive(fn)
+    want_routes = {
+        "config2_auto": {"bilinear_gather": 1, "gather_staged": 1},
+        "config2_bf16": {"bilinear_gather": 1, "gather_staged": 1},
+        "large_auto": {"bilinear_binning": 1, "bilinear_binned": 1,
+                       "binned_async": 1},
+        "large_full": {"bilinear_gather": 1, "gather_direct": 1},
+        "f64": {"bilinear_f64": 1},
+    }
+    for name, out in outs.items():
+        shape = INTERP_F64 if name == "f64" else (
+            INTERP_LARGE if name.startswith("large") else INTERP_F32)
+        dtype = f64 if name == "f64" else f32
         require(out.shape == shape[:1] + shape[3:] and out.dtype == dtype
                 and bool(torch.isfinite(out).all()),
                 f"interp2d {name}: shape {tuple(out.shape)}, {out.dtype}, "
                 "or non-finite values")
-    require(route32 == {"bilinear_gather": 1, "bilinear_binned": 0,
-                        "bilinear_f64": 0},
-            f"interp2d: auto at 256^2 launched {route32}, not the gather")
-    require(routeL == {"bilinear_gather": 0, "bilinear_binned": 1,
-                       "bilinear_f64": 0},
-            f"interp2d: auto at 1024^2 launched {routeL}, not the binned")
-    require(route64 == {"bilinear_gather": 0, "bilinear_binned": 0,
-                        "bilinear_f64": 1},
-            f"interp2d: the f64 leg launched {route64}")
+        require(routes[name] == want_routes[name],
+                f"interp2d {name}: launched {routes[name]}, not "
+                f"{want_routes[name]}")
+    out32, out_bf = outs["config2_auto"], outs["config2_bf16"]
+    outL, out64 = outs["large_auto"], outs["f64"]
 
-    # each kernel against its plain version at the legs' shapes
+    # the device binning against the plain binning on the same queries
+    binsL = ic.bin_queries_cuda(pL, *INTERP_LARGE[1:3])
+    plain_binsL = ic.bin_queries(pL, *INTERP_LARGE[1:3])
+    pO, gO = interp_inputs(torch, dev, INTERP_ONE_BIN, f32, 3, 40.0, 41.0)
+    binsO = ic.bin_queries_cuda(pO, *INTERP_ONE_BIN[1:3])
+    plain_binsO = ic.bin_queries(pO, *INTERP_ONE_BIN[1:3])
+    binning = {}
+    for name, got, want in (("1024^2", binsL, plain_binsL),
+                            ("one_bin", binsO, plain_binsO)):
+        binning[name] = {
+            "offsets_equal": bool(torch.equal(got.offsets, want.offsets)),
+            "same_ids_in_every_bin": same_bin_members(torch, got, want),
+            "pairs_follow_ids": bool(torch.equal(
+                got.pairs, torch.gather(
+                    pO if name == "one_bin" else pL, 1,
+                    got.order.long()[..., None].expand(-1, -1, 2))))}
+        require(all(binning[name].values()),
+                f"interp2d binning {name}: {binning[name]}")
+
+    # each kernel and body against its plain version at the legs' shapes
     exact32 = ic.gather_plain(p32, g32)
     bf32 = ic.bf16_grid(g32)
-    out_bf = pt.bilinear_batched(p32, g32, precision="bf16")
-    binsL = ic.bin_queries(pL, *INTERP_LARGE[1:3])
     bfL = ic.bf16_grid(gL)
-    out_bfL = ic.binned_cuda(pL, bfL, binsL)
-    pO, gO = interp_inputs(torch, dev, INTERP_ONE_BIN, f32, 3, 40.0, 41.0)
-    binsO = ic.bin_queries(pO, *INTERP_ONE_BIN[1:3])
+    out_bfL = ic.binned_cuda(bfL, binsL)
     outO = pt.bilinear_batched(pO, gO, method="binned")
-    # out-of-range queries at a smaller shape, through all three kernels
+    # out-of-range queries at a smaller shape, through every kernel
     pS, gS = interp_inputs(torch, dev, INTERP_SMALL, f32, 4, -3.0,
                            INTERP_SMALL[2] + 3.0)
     refS = host_double(pS, gS)
     outS = {m: pt.bilinear_batched(pS, gS, method=m)
             for m in ("full", "binned")}
+    outS_direct = ic.gather_cuda(pS, gS, body="direct")
     outS64 = pt.bilinear_batched_f64(pS, gS)
     plain, host, f64_bar = "f32_vs_plain", "f32_vs_host_double", "f64"
     checks = {   # name: (kernel's result, reference, bar)
         "gather_vs_plain": (out32, exact32, plain),
+        "gather_direct_vs_plain": (ic.gather_cuda(p32, g32, body="direct"),
+                                   exact32, plain),
         "gather_bf16_vs_plain": (out_bf, ic.gather_plain(p32, bf32), plain),
+        "gather_bf16_direct_vs_plain": (
+            ic.gather_cuda(p32, bf32, body="direct"),
+            ic.gather_plain(p32, bf32), plain),
         "bf16_vs_exact": (out_bf, exact32, "bf16_vs_exact"),
-        "binned_vs_plain": (outL, ic.binned_plain(pL, gL, binsL), plain),
+        "gather_at_1024_vs_plain": (outs["large_full"],
+                                    ic.gather_plain(pL, gL), plain),
+        "binned_vs_plain": (outL, ic.binned_plain(gL, binsL), plain),
         "binned_vs_plain_gather": (outL, ic.gather_plain(pL, gL), plain),
-        "binned_bf16_vs_plain": (out_bfL, ic.binned_plain(pL, bfL, binsL),
+        "binned_bf16_vs_plain": (out_bfL, ic.binned_plain(bfL, binsL),
                                  plain),
-        "binned_one_bin_vs_plain": (outO, ic.binned_plain(pO, gO, binsO),
+        "binned_bf16_vs_exact": (out_bfL, outL, "bf16_vs_exact"),
+        "binned_one_bin_vs_plain": (outO, ic.binned_plain(gO, binsO),
                                     plain),
         "f64_vs_plain": (out64, ic.f64_plain(p64, g64), f64_bar),
         "f64_vs_host_double": (out64, host_double(p64, g64), f64_bar),
         "small_full_vs_plain": (outS["full"], ic.gather_plain(pS, gS),
                                 plain),
         "small_full_vs_host_double": (outS["full"], refS, host),
+        "small_direct_vs_plain": (outS_direct, ic.gather_plain(pS, gS),
+                                  plain),
         "small_binned_vs_plain": (outS["binned"], ic.gather_plain(pS, gS),
                                   plain),
         "small_binned_vs_host_double": (outS["binned"], refS, host),
@@ -530,15 +638,41 @@ def interp2d(pt, torch, dev, smi: str):
         errs[key] = max_abs(got, want)
         require(errs[key] <= bars[bar],
                 f"interp2d {key}: {errs[key]} > {bars[bar]}")
+    # the binning's offsets are integers and equal exactly (required above)
+    errs["binning_vs_plain"] = max(
+        max_abs(binsL.offsets, plain_binsL.offsets),
+        max_abs(binsO.offsets, plain_binsO.offsets))
     one_bin_count = int(torch.diff(binsO.offsets, dim=1).max())
     require(one_bin_count == INTERP_ONE_BIN[3],
             f"interp2d one-bin case: largest bin holds {one_bin_count}")
 
+    # the one PyTorch call that computes the same function, timed as a
+    # yardstick and used nowhere in the port: grid_sample with border
+    # padding on coordinates normalised to [-1, 1] (normalised beforehand)
+    def normalised(pts, grids):
+        H, W = grids.shape[1:]
+        return grids[:, None], torch.stack(
+            [pts[..., 1] / (W - 1) * 2 - 1,
+             pts[..., 0] / (H - 1) * 2 - 1], dim=-1)[:, None]
+
+    def grid_sample(g4, q4):
+        return torch.nn.functional.grid_sample(
+            g4, q4, mode="bilinear", padding_mode="border",
+            align_corners=True)[:, 0, 0]
+
+    gs_in = {"gather": normalised(p32, g32), "binned": normalised(pL, gL),
+             "f64": normalised(p64, g64)}
+
     # times, kernel beside plain on the same inputs: (call, leg)
     calls = {
         "gather": (lambda: ic.gather_cuda(p32, g32), INTERP_F32),
+        "gather_direct": (lambda: ic.gather_cuda(p32, g32, body="direct"),
+                          INTERP_F32),
         "gather_plain": (lambda: ic.gather_plain(p32, g32), INTERP_F32),
         "gather_bf16": (lambda: ic.gather_cuda(p32, bf32), INTERP_F32),
+        "gather_bf16_direct": (lambda: ic.gather_cuda(p32, bf32,
+                                                      body="direct"),
+                               INTERP_F32),
         "gather_bf16_plain": (lambda: ic.gather_plain(p32, bf32),
                               INTERP_F32),
         "config2_entry_auto": (lambda: pt.bilinear_batched(p32, g32),
@@ -546,11 +680,12 @@ def interp2d(pt, torch, dev, smi: str):
         "config2_entry_bf16": (
             lambda: pt.bilinear_batched(p32, g32, precision="bf16"),
             INTERP_F32),
-        "binned": (lambda: ic.binned_cuda(pL, gL, binsL), INTERP_LARGE),
-        "binned_plain": (lambda: ic.binned_plain(pL, gL, binsL),
-                         INTERP_LARGE),
-        "binning_1024": (lambda: ic.bin_queries(pL, 1024, 1024),
-                         INTERP_LARGE),
+        "binned": (lambda: ic.binned_cuda(gL, binsL), INTERP_LARGE),
+        "binned_plain": (lambda: ic.binned_plain(gL, binsL), INTERP_LARGE),
+        "binning": (lambda: ic.bin_queries_cuda(pL, 1024, 1024),
+                    INTERP_LARGE),
+        "binning_plain": (lambda: ic.bin_queries(pL, 1024, 1024),
+                          INTERP_LARGE),
         "large_entry_auto": (lambda: pt.bilinear_batched(pL, gL),
                              INTERP_LARGE),
         "gather_at_1024": (lambda: ic.gather_cuda(pL, gL), INTERP_LARGE),
@@ -559,63 +694,120 @@ def interp2d(pt, torch, dev, smi: str):
         "f64": (lambda: ic.f64_cuda(p64, g64), INTERP_F64),
         "f64_plain": (lambda: ic.f64_plain(p64, g64), INTERP_F64),
     }
+    for key in gs_in:
+        calls[f"grid_sample_{key}"] = (
+            lambda a=gs_in[key]: grid_sample(*a),
+            {"gather": INTERP_F32, "binned": INTERP_LARGE,
+             "f64": INTERP_F64}[key])
     times = {k: timed(fn, torch) for k, (fn, _) in calls.items()}
     rate = {k: leg[0] * leg[3] / (times[k][0] * 1e-3) / 1e6
             for k, (_, leg) in calls.items()}
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cold_keys = ("gather", "gather_direct", "gather_bf16",
+                 "gather_bf16_direct", "config2_entry_auto", "binned",
+                 "binning", "large_entry_auto", "gather_at_1024", "f64",
+                 "grid_sample_gather", "grid_sample_binned",
+                 "grid_sample_f64")
+    cold = {k: timed_cold(calls[k][0], torch, flush_buf.zero_)
+            for k in cold_keys}
+    del flush_buf
+    dev_keys = ("gather", "gather_direct", "gather_bf16",
+                "gather_bf16_direct", "binned", "binning",
+                "large_entry_auto", "gather_at_1024", "f64",
+                "grid_sample_gather", "grid_sample_binned",
+                "grid_sample_f64")
+    dev_us, dev_kernels = {}, {}
+    for k in dev_keys:
+        dev_us[k], dev_kernels[k] = device_us(calls[k][0], torch)
+    sorts = [k for k in dev_kernels["large_entry_auto"]
+             if "sort" in k.lower()]
+    require(not sorts, f"interp2d: the profiled auto call ran sorts {sorts}")
+    require(len(dev_kernels["large_entry_auto"]) == 4,
+            "interp2d: the 1024^2 auto call ran "
+            f"{list(dev_kernels['large_entry_auto'])}, not the three "
+            "binning kernels and K8")
 
-    # the one PyTorch call that computes the same function, timed as a
-    # yardstick and used nowhere in the port: grid_sample with border
-    # padding on coordinates normalised to [-1, 1] (normalised beforehand)
-    def grid_sample(g4, q4):
-        return torch.nn.functional.grid_sample(
-            g4, q4, mode="bilinear", padding_mode="border",
-            align_corners=True)[:, 0, 0]
+    # host work per wrapper call, at a size where the device is idle
+    pT, gT = interp_inputs(torch, dev, (1, 8, 8, 2), f32, 5)
+    pT64, gT64 = pT.double(), gT.double()
+    binsT = ic.bin_queries_cuda(pT, 8, 8)
+    host = {"gather_cuda": host_us(lambda: ic.gather_cuda(pT, gT), torch),
+            "bin_queries_cuda": host_us(
+                lambda: ic.bin_queries_cuda(pT, 8, 8), torch),
+            "binned_cuda": host_us(lambda: ic.binned_cuda(gT, binsT),
+                                   torch),
+            "f64_cuda": host_us(lambda: ic.f64_cuda(pT64, gT64), torch),
+            "bilinear_batched_full": host_us(
+                lambda: pt.bilinear_batched(pT, gT), torch),
+            "bilinear_batched_binned": host_us(
+                lambda: pt.bilinear_batched(pT, gT, method="binned"),
+                torch)}
 
-    library = {}
-    for key, (pts, grids, out) in {"gather": (p32, g32, out32),
-                                   "binned": (pL, gL, outL),
-                                   "f64": (p64, g64, out64)}.items():
-        H, W = grids.shape[1:]
-        q4 = torch.stack([pts[..., 1] / (W - 1) * 2 - 1,
-                          pts[..., 0] / (H - 1) * 2 - 1], dim=-1)[:, None]
-        g4 = grids[:, None]
-        library[key] = {
-            "ms": timed(lambda g4=g4, q4=q4: grid_sample(g4, q4), torch)[0],
-            "max_abs_err_vs_kernel": max_abs(grid_sample(g4, q4), out)}
+    library = {k: {"ms": times[f"grid_sample_{k}"][0],
+                   "device_us": dev_us[f"grid_sample_{k}"],
+                   "max_abs_err_vs_kernel": max_abs(
+                       grid_sample(*gs_in[k]), out)}
+               for k, out in (("gather", out32), ("binned", outL),
+                              ("f64", out64))}
     row = {"phase": "interp2d", "shapes": {"f32": INTERP_F32,
                                            "large": INTERP_LARGE,
                                            "f64": INTERP_F64},
-           "launches": {"config2_auto": route32, "large_auto": routeL,
-                        "f64": route64},
+           "launches": routes,
+           "staged_bands": {
+               "config2_f32": ic.gather_body(p32, g32),
+               "config2_bf16": ic.gather_body(p32, bf32),
+               "1024_f32": ic.gather_body(pL, gL)},
+           "binning_vs_plain": binning,
            "max_abs_err": errs, "bars": bars,
            "one_bin_largest_bin": one_bin_count,
            "ms_median_of_20": {k: v[0] for k, v in times.items()},
            "ms_back_to_back_mean_of_20": {k: v[1] for k, v in times.items()},
+           "ms_l2_flushed_median_of_10": cold,
+           "device_us_per_call": dev_us,
+           "device_us_by_kernel": dev_kernels,
+           "host_us_per_call_of_1000": host,
            "mq_per_s": rate, "library_grid_sample": library, "card": smi}
     emit(row)
 
-    def entry(name, line, key, launched, err_keys, io, dtype):
-        queries = io[0].shape[0] * io[0].shape[1]
-        b_ms, b_by = bound(nbytes(*io), BILINEAR_OPS_PER_QUERY * queries,
-                           dtype)
+    def entry(name, line, key, launched, err_keys, io, dtype, lib,
+              ops=BILINEAR_OPS_PER_QUERY):
+        queries = outs["f64" if key == "f64" else (
+            "large_auto" if key in ("binned", "binning")
+            else "config2_auto")].numel()
+        b_ms, b_by = bound(nbytes(*io), ops * queries, dtype)
         return {"name": name, "route": "cuda", "source": INTERP_SRC,
                 "replaces": f"{INTERP_TPU}:{line}", "launches": launched,
                 "max_abs_err": max(errs[k] for k in err_keys),
                 "ms": times[key][0], "plain_ms": times[key + "_plain"][0],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library[key]["ms"]}
+                "library_ms": library[lib]["ms"] if lib else None,
+                "ms_l2_flushed": cold[key], "device_us": dev_us[key],
+                "library_device_us": (library[lib]["device_us"] if lib
+                                      else None)}
 
+    binning_entry = entry(
+        "bilinear_binning", 787, "binning",
+        routes["large_auto"]["bilinear_binning"], ["binning_vs_plain"],
+        (pL, binsL.pairs, binsL.order, binsL.offsets), "float32", None,
+        BIN_OPS_PER_QUERY)
     return [
-        entry("bilinear_gather", 871, "gather", route32["bilinear_gather"],
-              ["gather_vs_plain", "gather_bf16_vs_plain",
-               "small_full_vs_plain"], (p32, g32, out32), "float32"),
-        entry("bilinear_binned", 670, "binned", routeL["bilinear_binned"],
+        entry("bilinear_gather", 871, "gather",
+              routes["config2_auto"]["bilinear_gather"],
+              ["gather_vs_plain", "gather_direct_vs_plain",
+               "gather_bf16_vs_plain", "gather_bf16_direct_vs_plain",
+               "gather_at_1024_vs_plain", "small_full_vs_plain",
+               "small_direct_vs_plain"], (p32, g32, out32), "float32",
+              "gather"),
+        entry("bilinear_binned", 670, "binned",
+              routes["large_auto"]["bilinear_binned"],
               ["binned_vs_plain", "binned_bf16_vs_plain",
                "binned_one_bin_vs_plain", "small_binned_vs_plain"],
-              (pL, gL, outL), "float32"),
-        entry("bilinear_f64", 556, "f64", route64["bilinear_f64"],
+              (gL, binsL.pairs, binsL.order, binsL.offsets, outL),
+              "float32", "binned"),
+        binning_entry,
+        entry("bilinear_f64", 556, "f64", routes["f64"]["bilinear_f64"],
               ["f64_vs_plain", "small_f64_vs_plain"], (p64, g64, out64),
-              "float64"),
+              "float64", "f64"),
     ]
 
 
@@ -835,6 +1027,33 @@ def interp1d(pt, torch, dev, smi: str):
     timed(calls["lerp1d"][0], torch)
     times = {k: timed(fn, torch) for k, (fn, _) in calls.items()}
     rate = {k: Q / (times[k][0] * 1e-3) / 1e9 for k, (_, Q) in calls.items()}
+
+    # the one PyTorch call that computes K3's and K4's function, timed as a
+    # yardstick and used nowhere in the port: grid_sample on a 1 x n image,
+    # border padding, align_corners=True, the queries normalised to [-1, 1]
+    # beforehand.  K5's non-uniform nodes have no such single call.
+    def grid_sample_1d(fp, q, dx):
+        u = (q - x0) / (dx * (fp.shape[0] - 1)) * 2 - 1
+        return fp[None, None, None], torch.stack(
+            [u, torch.zeros_like(u)], dim=-1)[None, None]
+
+    def grid_sample(img, grid):
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)[0, 0, 0]
+
+    library = {}
+    for key, (fp, q, dx, out) in {"lerp1d": (fp1, q1, dx1, out1),
+                                  "lerp1d_sorted": (fpK, qK, dxK, outK)
+                                  }.items():
+        args = grid_sample_1d(fp, q, dx)
+        library[key] = {
+            "ms": timed(lambda a=args: grid_sample(*a), torch)[0],
+            "device_us": device_us(lambda a=args: grid_sample(*a),
+                                   torch)[0],
+            "max_abs_err_vs_kernel": nan_aware_err(grid_sample(*args),
+                                                   out)}
+        del args
     row = {"phase": "interp1d",
            "shapes": {"config1": LERP_CONFIG1, "64k": LERP_64K,
                       "nonuniform": INTERP_NONUNIFORM,
@@ -850,7 +1069,10 @@ def interp1d(pt, torch, dev, smi: str):
                "64k": times["sort_64k"][0] / times["64k_entry"][0],
                "nonuniform": (times["sort_nonuniform"][0]
                               / times["nonuniform_entry"][0])},
-           "gq_per_s": rate, "card": smi}
+           "gq_per_s": rate, "library_grid_sample": library,
+           "library_none": {"interp1d_kernel": "non-uniform nodes: no "
+                            "single PyTorch call computes it"},
+           "card": smi}
     emit(row)
 
     def entry(name, line, key, launched, err_keys, io):
@@ -861,7 +1083,8 @@ def interp1d(pt, torch, dev, smi: str):
                 "replaces": f"{INTERP_TPU}:{line}", "launches": launched,
                 "max_abs_err": max(errs[k] for k in err_keys),
                 "ms": times[key][0], "plain_ms": times[key + "_plain"][0],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library[key]["ms"] if key in library else None}
 
     def vs_plain(part):
         return [k for k in errs if part in k and k.endswith("_vs_plain")]

@@ -242,7 +242,12 @@ def test_binning_groups_every_query_once(case):
     assert (nbr - 1) * be_r <= H - 2 and (nbc - 1) * be_c <= W - 2
     order = bins.order.numpy()
     offsets = bins.offsets.numpy()
+    assert bins.order.dtype == bins.offsets.dtype == torch.int32
     assert offsets.shape == (B, bins.nbins + 1)
+    # the pairs in bin order are the queries' own
+    np.testing.assert_array_equal(
+        bins.pairs.numpy(), np.take_along_axis(pts, order[..., None].astype(
+            np.int64), axis=1))
     r0 = np.clip(np.floor(np.clip(pts[..., 0], 0, H - 1)), 0, H - 2)
     c0 = np.clip(np.floor(np.clip(pts[..., 1], 0, W - 1)), 0, W - 2)
     for b in range(B):
@@ -262,11 +267,46 @@ def test_binning_groups_every_query_once(case):
         assert (counts == 0).sum() > bins.nbins
 
 
+@pytest.mark.parametrize("case", list(BIN_CASES))
+def test_binning_matches_the_jax_bin_assignment(case):
+    """The plain binning against the JAX binned path's own bin assignment
+    and offsets (interp_pallas.py:779-794), recomputed from the same
+    pairs."""
+    B, H, W, Q, lo, hi = BIN_CASES[case]
+    pts = np.random.default_rng(13).uniform(lo, hi, (B, Q, 2)).astype(
+        np.float32)
+    bins = interp_cuda.bin_queries(torch.from_numpy(pts), H, W)
+    nbr, nbc, be_r, be_c = interp_cuda.bin_layout(H, W)
+    nbins = nbr * nbc
+    # interp_pallas.py:779-784
+    r = jnp.clip(jnp.asarray(pts)[..., 0], 0.0, H - 1.0)
+    c = jnp.clip(jnp.asarray(pts)[..., 1], 0.0, W - 1.0)
+    r0 = jnp.clip(r.astype(jnp.int32), 0, H - 2)
+    c0 = jnp.clip(c.astype(jnp.int32), 0, W - 2)
+    bin_id = (jnp.minimum(r0 // be_r, nbr - 1) * nbc
+              + jnp.minimum(c0 // be_c, nbc - 1))
+    # :785-794, the sorted keys and the searchsorted offsets
+    bits = max(1, (Q - 1).bit_length())
+    key = (bin_id << bits) | jnp.arange(Q, dtype=jnp.int32)
+    key_s = jnp.sort(key, axis=1)
+    edges = jnp.arange(nbins + 1, dtype=jnp.int32) << bits
+    want = np.stack([np.searchsorted(np.asarray(row), np.asarray(edges),
+                                     side="left") for row in key_s])
+    np.testing.assert_array_equal(bins.offsets.numpy(), want)
+    # every query lands in the JAX bin
+    got_bin = np.empty((B, Q), np.int64)
+    order, offsets = bins.order.numpy(), bins.offsets.numpy()
+    for b in range(B):
+        for k in range(nbins):
+            got_bin[b, order[b, offsets[b, k]:offsets[b, k + 1]]] = k
+    np.testing.assert_array_equal(got_bin, np.asarray(bin_id))
+
+
 def test_binned_plain_is_the_full_gather_bit_for_bit():
     grids, pts = grids_pts(12, 2, 700, 650, 3001, -3.0, 703.0)
     p, g = torch.from_numpy(pts), torch.from_numpy(grids)
     bins = interp_cuda.bin_queries(p, 700, 650)
-    assert torch.equal(interp_cuda.binned_plain(p, g, bins),
+    assert torch.equal(interp_cuda.binned_plain(g, bins),
                        interp_cuda.gather_plain(p, g))
 
 
@@ -315,7 +355,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         interp_cuda.gather_cuda(p, g)
     with pytest.raises(ValueError, match="CUDA"):
-        interp_cuda.binned_cuda(p, g, bins)
+        interp_cuda.binned_cuda(g, bins)
+    with pytest.raises(ValueError, match="CUDA"):
+        interp_cuda.bin_queries_cuda(p, 4, 6)
     with pytest.raises(ValueError, match="CUDA"):
         interp_cuda.f64_cuda(p.double(), g.double())
     # the CPU path runs the plain versions and launches nothing

@@ -49,7 +49,7 @@ def max_diff(a, b):
 
 
 # Q not a multiple of the 256-thread block, H and W not multiples of 32 or
-# of the bin edge
+# of the bin edge (all take the direct body: too few grids for staging)
 GATHER_SHAPES = [(1, 2, 2, 1), (3, 37, 45, 1000), (2, 256, 256, 16384),
                  (1, 1024, 1024, 4099)]
 
@@ -78,20 +78,92 @@ BINNED_CASES = {
 }
 
 
+@pytest.mark.parametrize("case", list(BINNED_CASES))
+def test_device_binning_matches_plain_binning(card, case):
+    B, H, W, Q, lo, hi = BINNED_CASES[case]
+    pts, _ = inputs(card, B, H, W, Q, lo, hi)
+    before = ic.LAUNCHES["bilinear_binning"]
+    got = ic.bin_queries_cuda(pts, H, W)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES["bilinear_binning"] == before + 1
+    want = ic.bin_queries(pts, H, W)
+    assert torch.equal(got.offsets, want.offsets)
+    assert (got.nbc, got.be_r, got.be_c) == (want.nbc, want.be_r, want.be_c)
+    offsets = want.offsets.cpu()
+    for b in range(B):
+        for k in range(want.nbins):
+            lo_k, hi_k = int(offsets[b, k]), int(offsets[b, k + 1])
+            ids = got.order[b, lo_k:hi_k]
+            assert torch.equal(torch.sort(ids).values,
+                               torch.sort(want.order[b, lo_k:hi_k]).values)
+            # each id's pair travels with it
+            assert torch.equal(got.pairs[b, lo_k:hi_k], pts[b, ids.long()])
+
+
 @pytest.mark.parametrize("precision", ["bf16x2", "bf16"])
 @pytest.mark.parametrize("case", list(BINNED_CASES))
 def test_binned_kernel_matches_plain(card, case, precision):
     B, H, W, Q, lo, hi = BINNED_CASES[case]
     pts, grids = inputs(card, B, H, W, Q, lo, hi)
     g = grids if precision == "bf16x2" else ic.bf16_grid(grids)
-    bins = ic.bin_queries(pts, H, W)
+    bins = ic.bin_queries_cuda(pts, H, W)
     before = ic.LAUNCHES["bilinear_binned"]
-    got = ic.binned_cuda(pts, g, bins)
+    bodies = dict(ic.BODIES)
+    got = ic.binned_cuda(g, bins)
     torch.cuda.synchronize()
     assert ic.LAUNCHES["bilinear_binned"] == before + 1
+    copy = W * g.element_size() % 16 == 0
+    key = "binned_async" if copy else "binned_sync"
+    assert ic.BODIES[key] == bodies[key] + 1
     assert bool(torch.isfinite(got).all())
-    assert max_diff(got, ic.binned_plain(pts, g, bins)) <= F32_BAR
+    assert max_diff(got, ic.binned_plain(g, bins)) <= F32_BAR
     assert max_diff(got, ic.gather_plain(pts, g)) <= F32_BAR
+    # the plain binning's order gives the same result
+    assert max_diff(ic.binned_cuda(g, ic.bin_queries(pts, H, W)), got) == 0.0
+
+
+# (B, H, W, Q, grid dtype, bands the route gives the staged body (0: the
+# direct body), the fewest bands that fit shared memory (0: none))
+STAGED_CASES = {
+    "bf16_256_one_band": (64, 256, 256, 3000, "bf16", 1, 1),
+    "f32_256_two_bands": (64, 256, 256, 3001, "f32", 2, 2),
+    # queries split into parts to reach every SM; W not a multiple of 4:
+    # bands off the 16-byte boundaries
+    "f32_300x259_parts": (16, 300, 259, 1001, "f32", 2, 2),
+    # too few grids for staging to pay: routed to the direct body
+    "f32_256_few_grids": (8, 256, 256, 5001, "f32", 0, 2),
+    # the most bands: the route takes the direct body, staging still runs
+    "f32_440x1024_eight_bands": (1, 440, 1024, 7001, "f32", 0, 8),
+    # one row more than 8 bands hold: no staging at all
+    "f32_441x1024_no_fit": (1, 441, 1024, 3000, "f32", 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_staged_gather_matches_plain_and_direct(card, case):
+    B, H, W, Q, dtype, route, fit = STAGED_CASES[case]
+    pts, grids = inputs(card, B, H, W, Q, seed=5)
+    pts[0, ::11, 0] = float("nan")
+    g = grids if dtype == "f32" else ic.bf16_grid(grids)
+    assert ic.gather_body(pts, g) == route
+    assert ic.staged_bands(H, W, g.element_size()) == fit
+    bodies = dict(ic.BODIES)
+    got = ic.gather_cuda(pts, g)
+    torch.cuda.synchronize()
+    key = "gather_staged" if route else "gather_direct"
+    assert ic.BODIES[key] == bodies[key] + 1
+    want = ic.gather_plain(pts, g)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert max_diff(got[ok], want[ok]) <= F32_BAR
+    for body in ("direct", "staged"):
+        if body == "staged" and fit == 0:
+            with pytest.raises(ValueError, match="bands"):
+                ic.gather_cuda(pts, g, body=body)
+            continue
+        other = ic.gather_cuda(pts, g, body=body)
+        assert torch.equal(torch.isnan(other), torch.isnan(got))
+        assert max_diff(other[ok], got[ok]) == 0.0
 
 
 @pytest.mark.parametrize("method", ["full", "binned"])
@@ -154,8 +226,9 @@ def test_result_takes_the_grid_dtype(card):
 def test_nan_queries_give_nan_like_the_plain_version(card):
     pts, grids = inputs(card, 1, 40, 40, 300)
     pts[0, ::7, 0] = float("nan")
-    bins = ic.bin_queries(pts, 40, 40)
-    for got in (ic.gather_cuda(pts, grids), ic.binned_cuda(pts, grids, bins)):
+    bins = ic.bin_queries_cuda(pts, 40, 40)
+    for got in (ic.gather_cuda(pts, grids), ic.gather_cuda(pts, grids, "direct"),
+                ic.binned_cuda(grids, bins)):
         want = ic.gather_plain(pts, grids)
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         ok = ~torch.isnan(want)
