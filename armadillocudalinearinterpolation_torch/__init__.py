@@ -21,6 +21,7 @@ from .model.coupling import coupling_kernel, coupling_row, mexican_hat
 from .model.lift import lift, initial_spike_indices
 from .model.events import event_time
 from .model.evolve import EvolveResult, evolve_ensemble
+from .model.evolve_batched import evolve_ensemble_batched
 from .model.evolve_cuda import evolve_ensemble_cuda
 from .model.replay import (compute_schedule, replay_events,
                            evolve_ensemble_replay)
@@ -65,6 +66,7 @@ __all__ = [
     "event_time",
     "EvolveResult",
     "evolve_ensemble",
+    "evolve_ensemble_batched",
     "evolve_ensemble_cuda",
     "compute_schedule",
     "replay_events",

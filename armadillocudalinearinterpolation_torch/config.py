@@ -1,8 +1,9 @@
 """Configuration for the PyTorch port of the event-driven-map framework.
 
 Same fields, defaults and validation as the JAX package's ``config.py``,
-minus the knobs that only served the TPU (the per-row evolve window, the
-df64 replay modes and the warm-started evolve).  ``ModelConfig`` and
+minus the knobs that only served the TPU (the per-row evolve window, whose
+per-row anchoring the CUDA kernel has by construction, the df64 replay
+modes and the warm-started evolve).  ``ModelConfig`` and
 ``NewtonConfig`` are frozen dataclasses; ``MapParams`` holds the
 continuation parameters ``(beta, sigma)`` as 0-dim tensors.
 """
@@ -38,9 +39,10 @@ class ModelConfig:
         multiple of 128 events per row, and a row with more events is
         rejected by the replay (:mod:`.model.replay`).
       evolve_window: lanes of the windowed event-time root-find (0 = all
-        lanes).  Validated as in the JAX package; the evolve here always
-        evaluates every lane, which gives the same results because the
-        window is certified exact.
+        lanes), validated as in the JAX package.  The evolve kernel and its
+        plain version (``model/evolve_batched.py``) run the root-find on
+        that many lanes around each row's wave packet and certify every
+        event, so the results equal those of every lane.
       dtype: ``"float32"`` or ``"float64"``.
     """
 

@@ -20,14 +20,19 @@
 // - K3: one thread per query, grid-stride; both nodes through the
 //   read-only path.
 // - K4: K3's function on value-sorted batches (the sort is a PyTorch sort
-//   outside).  One CTA per group of kGroup consecutive sorted queries of
-//   one batch.  The group's node span [min i0, max i0 + 1] comes from a
-//   block min/max over its queries, so it holds for any order; NaN queries
-//   and pads take no part (a NaN's result is NaN at any cell).  A span of
-//   at most kWindow nodes is staged in shared memory and read there; a
-//   wider one (skewed or out-of-range queries) is read from the table in
-//   device memory, so every distribution stays exact.  Each result goes
-//   straight to out[id]: no restore sort.
+//   outside, sort_batches: batch b holds the ids [b Qb, (b+1) Qb)).  Both
+//   nodes come through the read-only path: sorted neighbours share L1
+//   lines where the queries are dense, and where they are sparse (64k
+//   nodes, 4096 queries a batch: ~16 nodes apart) a staged node span would
+//   read more table than the queries need.  What the sort costs K4 is the
+//   scatter of results to their ids, so a batch of at most kBatchStage
+//   queries is one CTA: each thread computes kUnroll queries at a time
+//   (their loads in flight together), puts each result in shared memory at
+//   its id's place in the batch, and the CTA then writes the batch's
+//   results in id order, coalesced (a batch holding ids outside its range,
+//   which sort_batches never makes, writes each result to its id).  Larger
+//   batches take a grid-stride body that writes each result straight to
+//   out[id].  Neither needs a restore sort; both take any permutation.
 // - K5: one thread per query, grid-stride; the bucket seed, the step-back
 //   check and at most S advance steps, each one load, then one float4 load
 //   of the node row (xp[lo], xp[lo+1], fp[lo], fp[lo+1]).  With an order
@@ -42,15 +47,15 @@
 // so that no multiply-add is fused where the plain version rounds twice.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = kThreads;  // sorted queries per CTA of K4
-constexpr int kWindow = 8192;     // nodes K4 stages in shared memory (32 KB)
 constexpr int kBlocksPerSM = 8;   // grid-stride kernels: 2048 threads an SM
+constexpr int kSortedThreads = 512;  // K4's CTA per batch
+constexpr int kBatchStage = 12288;   // largest batch K4 stages (48 KB)
+constexpr int kUnroll = 4;           // K4's queries in flight per thread
 
 __device__ __forceinline__ float clamp01(float t) {
   return t < 0.f ? 0.f : (t > 1.f ? 1.f : t);
@@ -65,72 +70,96 @@ __device__ __forceinline__ int cell(float u, int n) {
   return min(max(__float2int_rz(u), 0), n - 2);
 }
 
+// K3's value of one query
+__device__ __forceinline__ float lerp_at(float q, const float* __restrict__ fp,
+                                         int n, float x0, float inv_dx) {
+  const float u = (q - x0) * inv_dx;
+  const int i0 = cell(u, n);
+  const float t = clamp01(u - (float)i0);
+  return lerp(__ldg(fp + i0), __ldg(fp + i0 + 1), t);
+}
+
 __global__ void lerp1d_kernel(const float* __restrict__ q,
                               const float* __restrict__ fp,
                               float* __restrict__ out, long long Q, int n,
                               float x0, float inv_dx) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < Q;
-       i += stride) {
-    const float u = (__ldg(q + i) - x0) * inv_dx;
-    const int i0 = cell(u, n);
-    const float t = clamp01(u - (float)i0);
-    out[i] = lerp(__ldg(fp + i0), __ldg(fp + i0 + 1), t);
-  }
+       i += stride)
+    out[i] = lerp_at(__ldg(q + i), fp, n, x0, inv_dx);
 }
 
-__global__ void __launch_bounds__(kGroup)
+// One CTA per batch of Qb <= kBatchStage sorted queries (blockIdx.x); four
+// CTAs an SM, so that the 512 batches of 2M queries run in one wave.
+//
+// A batch whose ids all lie in its own range (every batch of sort_batches)
+// holds exactly that range, since order is a permutation: its results are
+// written out in id order, and no other batch writes there.  A batch that
+// holds an id outside its range (any other permutation) writes every result
+// straight to its id instead, as the grid-stride body does; the one barrier
+// tells the CTA which case it is in.
+__global__ void __launch_bounds__(kSortedThreads, 4)
     lerp1d_sorted_kernel(const float* __restrict__ qs,
                          const long long* __restrict__ order,
                          const float* __restrict__ fp, float* __restrict__ out,
-                         long long Q, long long Qb, int n, float x0,
-                         float inv_dx) {
-  __shared__ float win[kWindow];
-  __shared__ int s_lo, s_hi;
-  const long long k = (long long)blockIdx.x * kGroup + threadIdx.x;
-  const long long pos = (long long)blockIdx.y * Qb + k;
-  float u = 0.f;
-  int i0 = 0;
-  long long id = Q;  // a position past the batch writes nothing
-  if (k < Qb) {
-    u = (__ldg(qs + pos) - x0) * inv_dx;
-    i0 = cell(u, n);
-    id = __ldg(order + pos);
+                         long long Q, int Qb, int n, float x0, float inv_dx) {
+  extern __shared__ float res[];  // the batch's results by id - base
+  const long long base = (long long)blockIdx.x * Qb;
+  int local = 1;
+  for (int k0 = threadIdx.x; k0 < Qb; k0 += kUnroll * kSortedThreads) {
+    float qv[kUnroll];
+    int slot[kUnroll];  // -1: an id outside the batch
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * kSortedThreads;
+      if (k < Qb) {
+        qv[u] = __ldg(qs + base + k);
+        const long long d = __ldg(order + base + k) - base;
+        slot[u] = d >= 0 && d < Qb ? (int)d : -1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * kSortedThreads;
+      if (k >= Qb) continue;
+      const float r = lerp_at(qv[u], fp, n, x0, inv_dx);
+      if (slot[u] >= 0) {
+        res[slot[u]] = r;
+      } else {
+        local = 0;
+        const long long id = __ldg(order + base + k);
+        if (id >= 0 && id < Q) out[id] = r;
+      }
+    }
   }
-  const bool valid = id < Q && !isnan(u);
-  if (threadIdx.x == 0) {
-    s_lo = INT_MAX;
-    s_hi = -1;
+  if (__syncthreads_and(local)) {
+    const int n_out = (int)min((long long)Qb, Q - base);  // pads write nothing
+    for (int k = threadIdx.x; k < n_out; k += kSortedThreads)
+      out[base + k] = res[k];
+    return;
   }
-  __syncthreads();
-  const int lo_w = __reduce_min_sync(0xffffffffu, valid ? i0 : INT_MAX);
-  const int hi_w = __reduce_max_sync(0xffffffffu, valid ? i0 : -1);
-  if ((threadIdx.x & 31) == 0) {
-    atomicMin(&s_lo, lo_w);
-    atomicMax(&s_hi, hi_w);
+  // this thread's own in-range results, each to its id
+  for (int k = threadIdx.x; k < Qb; k += kSortedThreads) {
+    const long long slot = __ldg(order + base + k) - base;
+    if (slot >= 0 && slot < Qb && base + slot < Q)
+      out[base + slot] = res[slot];
   }
-  __syncthreads();
-  // the group reads nodes [lo, s_hi + 1]; the same for the whole CTA
-  const int lo = s_lo;
-  const int span = s_hi + 2 - lo;
-  const bool staged = s_hi >= 0 && span <= kWindow;
-  if (staged) {
-    for (int e = threadIdx.x; e < span; e += kGroup) win[e] = __ldg(fp + lo + e);
-    __syncthreads();
+}
+
+// Batches above kBatchStage: grid-stride over the sorted positions, each
+// result to out[order[i]] (ids >= Q are pads).
+__global__ void lerp1d_sorted_direct_kernel(const float* __restrict__ qs,
+                                            const long long* __restrict__ order,
+                                            const float* __restrict__ fp,
+                                            float* __restrict__ out,
+                                            long long Q, long long total,
+                                            int n, float x0, float inv_dx) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const long long id = __ldg(order + i);
+    if (id < Q) out[id] = lerp_at(__ldg(qs + i), fp, n, x0, inv_dx);
   }
-  if (id >= Q) return;
-  const float t = clamp01(u - (float)i0);
-  float f0, f1;
-  if (staged) {
-    // a NaN query's cell may lie outside the span: keep it in the window
-    const int j = min(max(i0 - lo, 0), span - 2);
-    f0 = win[j];
-    f1 = win[j + 1];
-  } else {
-    f0 = __ldg(fp + i0);
-    f1 = __ldg(fp + i0 + 1);
-  }
-  out[id] = lerp(f0, f1, t);
 }
 
 __global__ void interp1d_kernel(const float* __restrict__ q,
@@ -191,20 +220,34 @@ extern "C" int atorch_lerp1d(const void* q, const void* fp, void* out,
   return (int)cudaGetLastError();
 }
 
-// qs and order: n_batches rows of Qb sorted positions; ids >= Q are pads.
+// qs and order: n_batches rows of Qb sorted positions, order a permutation
+// of [0, n_batches Qb) (sort_batches: row b holds the ids [b Qb, (b+1) Qb),
+// the case the staged body writes out coalesced); ids >= Q are pads.
 extern "C" int atorch_lerp1d_sorted(const void* qs, const void* order,
                                     const void* fp, void* out, long long Q,
                                     int n_batches, long long Qb, int n,
                                     double x0, double inv_dx, void* stream) {
-  if (Q < 0 || n < 2 || n_batches < 1 || n_batches > 65535 || Qb < 0 ||
+  if (Q < 0 || n < 2 || n_batches < 1 || Qb < 0 ||
       (long long)n_batches * Qb < Q)
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
-  const dim3 grid((unsigned)((Qb + kGroup - 1) / kGroup), (unsigned)n_batches);
-  lerp1d_sorted_kernel<<<grid, kGroup, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(qs), static_cast<const long long*>(order),
-      static_cast<const float*>(fp), static_cast<float*>(out), Q, Qb, n,
-      (float)x0, (float)inv_dx);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (Qb <= kBatchStage) {
+    lerp1d_sorted_kernel<<<(unsigned)n_batches, kSortedThreads,
+                           (size_t)Qb * sizeof(float), s>>>(
+        static_cast<const float*>(qs), static_cast<const long long*>(order),
+        static_cast<const float*>(fp), static_cast<float*>(out), Q, (int)Qb,
+        n, (float)x0, (float)inv_dx);
+  } else {
+    const long long total = (long long)n_batches * Qb;
+    int blocks = 0;
+    const int err = grid_blocks(total, &blocks);
+    if (err != cudaSuccess) return err;
+    lerp1d_sorted_direct_kernel<<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(qs), static_cast<const long long*>(order),
+        static_cast<const float*>(fp), static_cast<float*>(out), Q, total, n,
+        (float)x0, (float)inv_dx);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -531,6 +531,21 @@ int opt_in(K kernel, size_t shmem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
 }
 
+// Launches that put the grid index on grid.y (at most 65535) run over
+// chunks of at most kGridsPerLaunch grids, each with its pointers moved to
+// the chunk's first grid.  An even count keeps a chunk's pairs on the
+// 16-byte boundaries of the whole array.
+constexpr int kGridsPerLaunch = 65534;
+
+template <typename F>
+int for_grid_chunks(int B, F launch_chunk) {
+  for (int b0 = 0; b0 < B; b0 += kGridsPerLaunch) {
+    const int err = launch_chunk(b0, std::min(kGridsPerLaunch, B - b0));
+    if (err != cudaSuccess) return err;
+  }
+  return (int)cudaSuccess;
+}
+
 // CTAs of `kernel` that fit on the whole card at once.
 template <typename K>
 int resident_ctas(K kernel, int threads, size_t shmem, int* out) {
@@ -549,8 +564,7 @@ int resident_ctas(K kernel, int threads, size_t shmem, int* out) {
 
 int check_common(const void* pts, size_t pair_bytes, int B, int Q, int H,
                  int W) {
-  if (B < 0 || Q < 0 || H < 2 || W < 2 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (B < 0 || Q < 0 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)pts % pair_bytes != 0) return (int)cudaErrorMisalignedAddress;
   return (int)cudaSuccess;
 }
@@ -561,12 +575,15 @@ int launch_gather(const void* pts, const void* grids, void* out, int B, int Q,
   using P = typename Pair<T>::type;
   const int err = check_common(pts, sizeof(P), B, Q, H, W);
   if (err != cudaSuccess || B == 0 || Q == 0) return err;
-  const dim3 grid((unsigned)(((long long)Q + kThreads - 1) / kThreads),
-                  (unsigned)B);
-  bilinear_gather_kernel<T, G><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const P*>(pts), static_cast<const G*>(grids),
-      static_cast<T*>(out), Q, H, W);
-  return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)(((long long)Q + kThreads - 1) / kThreads);
+  return for_grid_chunks(B, [&](int b0, int nb) {
+    bilinear_gather_kernel<T, G>
+        <<<dim3(blocks, (unsigned)nb), kThreads, 0, (cudaStream_t)stream>>>(
+            static_cast<const P*>(pts) + (size_t)b0 * Q,
+            static_cast<const G*>(grids) + (size_t)b0 * H * W,
+            static_cast<T*>(out) + (size_t)b0 * Q, Q, H, W);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename G>
@@ -583,11 +600,14 @@ int launch_staged(const void* pts, const void* grids, void* out, int B, int Q,
   const size_t shmem = 16 + (size_t)(rows + 1) * W * sizeof(G);
   auto kernel = bilinear_staged_kernel<G>;
   if ((err = opt_in(kernel, shmem)) != cudaSuccess) return err;
-  kernel<<<dim3((unsigned)(bands * parts), (unsigned)B), kStagedThreads,
-           shmem, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(pts), static_cast<const G*>(grids),
-      static_cast<float*>(out), Q, H, W, rows, bands);
-  return (int)cudaGetLastError();
+  return for_grid_chunks(B, [&](int b0, int nb) {
+    kernel<<<dim3((unsigned)(bands * parts), (unsigned)nb), kStagedThreads,
+             shmem, (cudaStream_t)stream>>>(
+        static_cast<const float2*>(pts) + (size_t)b0 * Q,
+        static_cast<const G*>(grids) + (size_t)b0 * H * W,
+        static_cast<float*>(out) + (size_t)b0 * Q, Q, H, W, rows, bands);
+    return (int)cudaGetLastError();
+  });
 }
 
 int launch_binning(const void* pts, void* pairs, void* order, void* offsets,
@@ -609,20 +629,30 @@ int launch_binning(const void* pts, void* pairs, void* order, void* offsets,
       (err = opt_in(bin_scatter_kernel, scatter_smem)) != cudaSuccess)
     return err;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)nblk, (unsigned)B);
+  const size_t hist_per_grid = (size_t)L.nbins * nblk;
   if (nblk > 0) {
-    bin_count_kernel<<<grid, kThreads, count_smem, s>>>(
-        static_cast<const float2*>(pts), static_cast<int*>(hist), Q, L);
-    if ((err = (int)cudaGetLastError()) != cudaSuccess) return err;
+    err = for_grid_chunks(B, [&](int b0, int nb) {
+      bin_count_kernel<<<dim3((unsigned)nblk, (unsigned)nb), kThreads,
+                         count_smem, s>>>(
+          static_cast<const float2*>(pts) + (size_t)b0 * Q,
+          static_cast<int*>(hist) + b0 * hist_per_grid, Q, L);
+      return (int)cudaGetLastError();
+    });
+    if (err != cudaSuccess) return err;
   }
   bin_scan_kernel<<<B, kScanThreads, 0, s>>>(
       static_cast<int*>(hist), static_cast<int*>(offsets), nblk, L.nbins);
   if ((err = (int)cudaGetLastError()) != cudaSuccess) return err;
   if (nblk > 0) {
-    bin_scatter_kernel<<<grid, kThreads, scatter_smem, s>>>(
-        static_cast<const float2*>(pts), static_cast<const int*>(hist),
-        static_cast<int*>(order), static_cast<float2*>(pairs), Q, L);
-    err = (int)cudaGetLastError();
+    err = for_grid_chunks(B, [&](int b0, int nb) {
+      bin_scatter_kernel<<<dim3((unsigned)nblk, (unsigned)nb), kThreads,
+                           scatter_smem, s>>>(
+          static_cast<const float2*>(pts) + (size_t)b0 * Q,
+          static_cast<const int*>(hist) + b0 * hist_per_grid,
+          static_cast<int*>(order) + (size_t)b0 * Q,
+          static_cast<float2*>(pairs) + (size_t)b0 * Q, Q, L);
+      return (int)cudaGetLastError();
+    });
   }
   return err;
 }

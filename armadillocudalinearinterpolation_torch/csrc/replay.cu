@@ -25,8 +25,12 @@
 // Layout: one CTA per row (one point x one realisation); v, s and beta of
 // the row in fp64 and the kick table in opt-in dynamic shared memory
 // (112 KB at N=4096, so two CTAs fit on an SM); threads stride over the
-// lanes.  The row stops at its own min(n_sched, E) events, or once all its
-// trajectories have crossed T (later events change no output).
+// lanes.  Where the row does not fit (N above 8,297), v, s and beta stay
+// in a (rows, 3N) scratch in device memory that the wrapper allocates and
+// the kick table is read where the wrapper keeps it; the same kernel body
+// runs on those pointers.  The row stops at its own min(n_sched, E)
+// events, or once all its trajectories have crossed T (later events change
+// no output).
 //
 // Semantics follow model/replay.py operation by operation.  Build without
 // --use_fast_math and with --fmad=false (see events.cuh).
@@ -50,7 +54,7 @@ __device__ __forceinline__ double membrane_shared(double t, double v,
   return v * e_t + drive * (1.0 - e_t) + s * (e_b - e_t) / (1.0 - b) - vth;
 }
 
-template <typename T>
+template <typename T, bool kRowInGlobal>
 __global__ void replay_kernel(const T* __restrict__ v0,
                               const T* __restrict__ s0,
                               const T* __restrict__ beta,
@@ -63,13 +67,19 @@ __global__ void replay_kernel(const T* __restrict__ v0,
                               T* __restrict__ last_time_out,
                               int* __restrict__ crossed_ind_out,
                               T* __restrict__ crossed_time_out,
-                              bool* __restrict__ accept_out) {
+                              bool* __restrict__ accept_out,
+                              double* __restrict__ row_scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
-  double* v = reinterpret_cast<double*>(smem);
+  double* big = kRowInGlobal ? row_scratch + (size_t)blockIdx.x * 3 * N
+                             : reinterpret_cast<double*>(smem);
+  double* v = big;
   double* s = v + N;
   double* b = s + N;
-  double* w = b + N;                       // N/2 + 1 kick weights
-  double* last_time = w + (N / 2 + 1);
+  // N/2 + 1 kick weights: a copy beside the row, or the wrapper's table
+  double* w_copy = b + N;
+  const double* w = kRowInGlobal ? wtab : w_copy;
+  double* last_time = kRowInGlobal ? reinterpret_cast<double*>(smem)
+                                   : w_copy + (N / 2 + 1);
   double* crossed_time = last_time + M;
   double* scal = crossed_time + M;         // [0] t, [1] dt
   int* last_ind = reinterpret_cast<int*>(scal + 2);
@@ -86,7 +96,8 @@ __global__ void replay_kernel(const T* __restrict__ v0,
     s[i] = (double)s0[(size_t)p * N + i];
     b[i] = (double)beta[(size_t)r * N + i];
   }
-  for (int d = tid; d <= N / 2; d += nthr) w[d] = wtab[d];
+  if (!kRowInGlobal)
+    for (int d = tid; d <= N / 2; d += nthr) w_copy[d] = wtab[d];
   const int ns = n_sched[sr];
   const int n_live = ns < E ? ns : E;
   const double drive = c.drive, vth = c.vth, t_horizon = c.t_horizon;
@@ -173,9 +184,11 @@ __global__ void replay_kernel(const T* __restrict__ v0,
   }
 }
 
-size_t smem_bytes(int N, int M) {
-  return (3 * (size_t)N + (size_t)(N / 2 + 1) + 2 * (size_t)M + 2)
-             * sizeof(double)
+// Dynamic shared memory of one CTA; model/evolve_cuda.py::row_fits_shared
+// counts the same arrays.
+size_t smem_bytes(int N, int M, bool row_in_global) {
+  const size_t row = 3 * (size_t)N + (size_t)(N / 2 + 1);
+  return ((row_in_global ? 0 : row) + 2 * (size_t)M + 2) * sizeof(double)
          + (3 * (size_t)M + 3) * sizeof(int);
 }
 
@@ -183,45 +196,50 @@ template <typename T>
 int launch(const void* v0, const void* s0, const void* beta,
            const void* sched, const void* n_sched, const void* init_ind,
            const void* wtab, void* last_ind, void* last_time,
-           void* crossed_ind, void* crossed_time, void* accept, int P, int R,
-           int N, int M, int E, int S, int Q, const Consts& c,
-           void* stream) {
+           void* crossed_ind, void* crossed_time, void* accept,
+           void* row_scratch, int P, int R, int N, int M, int E, int S,
+           int Q, const Consts& c, void* stream) {
   const long long rows = (long long)P * R;
   if (P < 1 || R < 1 || N < 1 || M < 1 || E < 1 || S < 1 || Q < 1
       || rows % S != 0 || P % Q != 0 || rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const size_t shmem = smem_bytes(N, M);
-  const int err = set_shared_memory(replay_kernel<T>, shmem);
+  const bool global = row_scratch != nullptr;
+  const size_t shmem = smem_bytes(N, M, global);
+  auto kernel = global ? replay_kernel<T, true> : replay_kernel<T, false>;
+  const int err = set_shared_memory(kernel, shmem);
   if (err != 0) return err;
   const int threads = N >= 256 ? 256 : ((N + 31) / 32) * 32;
-  replay_kernel<T><<<(unsigned)rows, threads, shmem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)rows, threads, shmem, (cudaStream_t)stream>>>(
       static_cast<const T*>(v0), static_cast<const T*>(s0),
       static_cast<const T*>(beta), static_cast<const int*>(sched),
       static_cast<const int*>(n_sched), static_cast<const int*>(init_ind),
       static_cast<const double*>(wtab), R, N, M, E, S, Q, c,
       static_cast<int*>(last_ind), static_cast<T*>(last_time),
       static_cast<int*>(crossed_ind), static_cast<T*>(crossed_time),
-      static_cast<bool*>(accept));
+      static_cast<bool*>(accept), static_cast<double*>(row_scratch));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// root_tol is the seed's (f32) tolerance; counter_max bounds its Newton
+// root_tol is the seed's (f32) tolerance; counter_max bounds its Newton.
+// row_scratch: NULL keeps each row in shared memory; else P*R*3N doubles of
+// device memory for the rows.
 #define ATORCH_REPLAY(NAME, T)                                                \
   extern "C" int NAME(const void* v0, const void* s0, const void* beta,       \
                       const void* sched, const void* n_sched,                 \
                       const void* init_ind, const void* wtab, void* last_ind, \
                       void* last_time, void* crossed_ind, void* crossed_time, \
-                      void* accept, int P, int R, int N, int M, int E, int S, \
+                      void* accept, void* row_scratch, int P, int R, int N,   \
+                      int M, int E, int S,                                    \
                       int Q, int counter_max, double vth, double drive,       \
                       double gap, double t_horizon, double root_tol,          \
                       void* stream) {                                         \
     const Consts c{vth, drive, gap, 0.0, 0.0, 0.0, 0.0, 0.0, t_horizon,      \
                    root_tol, counter_max};                                    \
     return launch<T>(v0, s0, beta, sched, n_sched, init_ind, wtab, last_ind, \
-                     last_time, crossed_ind, crossed_time, accept, P, R, N,   \
-                     M, E, S, Q, c, stream);                                  \
+                     last_time, crossed_ind, crossed_time, accept,            \
+                     row_scratch, P, R, N, M, E, S, Q, c, stream);            \
   }
 
 ATORCH_REPLAY(atorch_replay_f32, float)

@@ -26,7 +26,8 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from ..config import ModelConfig, MapParams
-from .evolve import EvolveResult, evolve_ensemble
+from .evolve import EvolveResult
+from .evolve_batched import evolve_ensemble_batched
 from .evolve_cuda import evolve_ensemble_cuda
 from .lift import initial_spike_indices, lift
 from .replay import compute_schedule, evolve_ensemble_replay, select_replay
@@ -78,7 +79,10 @@ def select_evolve(evolve_backend: str, device: torch.device) -> Callable:
     raises on CPU tensors); ``"torch"`` is the plain version anywhere;
     ``"replay"`` is the two-pass evolve (f32 discovery, fp64 replay: K1
     with its log and K2 for CUDA tensors, the plain versions for CPU
-    ones)."""
+    ones).  The kernel and the plain version
+    (:func:`.evolve_batched.evolve_ensemble_batched`) both run the
+    certified window of ``cfg.evolve_window`` lanes, or every lane where it
+    is 0."""
     if evolve_backend not in EVOLVE_BACKENDS:
         raise ValueError(f"unknown evolve_backend: {evolve_backend!r} "
                          f"(expected one of {EVOLVE_BACKENDS})")
@@ -87,7 +91,7 @@ def select_evolve(evolve_backend: str, device: torch.device) -> Callable:
     if evolve_backend == "cuda" or (evolve_backend == "auto"
                                     and device.type == "cuda"):
         return evolve_ensemble_cuda
-    return evolve_ensemble
+    return evolve_ensemble_batched
 
 
 def run_pipeline(cfg: ModelConfig, params: MapParams, Z: torch.Tensor,

@@ -21,12 +21,15 @@ writes its lane at column ``k``; a row with more events keeps counting
 ``n_events > E``); columns past a row's events stay 0.
 
 This is the plain version of the CUDA kernel in ``csrc/evolve.cu``
-(:mod:`.evolve_cuda`): the CPU path, and the kernel's oracle on the card.
+(:mod:`.evolve_cuda`) with every lane evaluated: the CPU path, and the
+kernel's oracle on the card.  :func:`event_loop` takes the event selection
+(steps 1-2) as an argument, so that the windowed version
+(:mod:`.evolve_batched`) runs the same loop.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple, Union
+from typing import Callable, NamedTuple, Tuple, Union
 
 import torch
 
@@ -66,6 +69,14 @@ def check_evolve_inputs(cfg: ModelConfig, v0, s0, beta, init_ind) -> None:
         raise ValueError("v0, s0, beta and init_ind must be on one device")
 
 
+def select_full(cfg: ModelConfig, v: torch.Tensor, s: torch.Tensor,
+                b: torch.Tensor):
+    """Steps 1-2 over every lane: ``(dt (rows, 1), j (rows,) int32)``."""
+    times = event_time(v, s, b, cfg)                     # (rows, N)
+    j = torch.argmin(times, dim=1).to(torch.int32)       # lowest on ties
+    return torch.gather(times, 1, j[:, None].long()), j
+
+
 def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
                     beta: torch.Tensor, init_ind: torch.Tensor,
                     record_schedule: int = 0
@@ -85,6 +96,18 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
       ``p`` under realisation ``r``.  With ``record_schedule`` the pair
       ``(result, schedule)``.
     """
+    return event_loop(cfg, v0, s0, beta, init_ind, record_schedule,
+                      lambda v, s, b, last_ind, live: select_full(cfg, v, s,
+                                                                  b))
+
+
+def event_loop(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
+               beta: torch.Tensor, init_ind: torch.Tensor,
+               record_schedule: int, select: Callable):
+    """The loop of :func:`evolve_ensemble`, whose event selection is
+    ``select(v, s, b, last_ind, live) -> (dt (rows, 1), j (rows,) int32)``
+    on the ``(rows, N)`` states, the ``(rows, M)`` tracked indices and the
+    ``(rows,)`` live mask."""
     check_evolve_inputs(cfg, v0, s0, beta, init_ind)
     E = int(record_schedule)
     dt_, dev = v0.dtype, v0.device
@@ -110,9 +133,7 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
         live = ~crossed.all(dim=1) & (t < 2.0 * T)           # (rows,)
         if not bool(live.any()):
             break
-        times = event_time(v, s, b, cfg)                     # (rows, N)
-        j = torch.argmin(times, dim=1).to(torch.int32)       # lowest on ties
-        dt = torch.gather(times, 1, j[:, None].long())       # (rows, 1)
+        dt, j = select(v, s, b, last_ind, live)
 
         emt = torch.exp(-dt)
         v_new = (v * emt + cfg.drive * (1.0 - emt)

@@ -49,7 +49,8 @@ import torch
 from ..config import ModelConfig
 from .coupling import mexican_hat
 from .events import event_time, membrane_dfun
-from .evolve import EvolveResult, evolve_ensemble
+from .evolve import EvolveResult
+from .evolve_batched import evolve_ensemble_batched
 from .evolve_cuda import evolve_ensemble_cuda
 
 # The step a misfiring row takes: the JAX replay's f32 0.05, exactly.
@@ -250,15 +251,16 @@ def compute_schedule(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
 
     Inputs as :func:`.evolve.evolve_ensemble` takes them (``(P, N)``
     lifts, ``(R, N)`` rates, ``(P, M)`` indices), in any float dtype; the
-    pass runs on their f32 rounding under :func:`discovery_config`, on K1
-    with its log for CUDA tensors and on the plain evolve otherwise.  The
+    pass runs on their f32 rounding under :func:`discovery_config` (with
+    ``cfg.evolve_window``), on K1 with its log for CUDA tensors and on the
+    plain evolve otherwise.  The
     log is :func:`schedule_width` columns wide, int32, in lane indices;
     ``n_events`` counts the pass's events up to its (later) horizon.
     """
     cfg32 = discovery_config(cfg)
     v32, s32, b32 = (x.to(torch.float32).contiguous() for x in (v0, s0, beta))
     evolve = (evolve_ensemble_cuda if v0.device.type == "cuda"
-              else evolve_ensemble)
+              else evolve_ensemble_batched)
     res32, sched = evolve(cfg32, v32, s32, b32, init_ind.contiguous(),
                           record_schedule=schedule_width(cfg))
     return sched, res32.n_events

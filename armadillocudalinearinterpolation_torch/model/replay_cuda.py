@@ -7,7 +7,9 @@ K2).
 device (the arithmetic is fp64 either way).  It launches on the current
 stream, does not synchronise, and raises on any input the kernel does not
 take; there is no fallback.  ``LAUNCHES`` counts its launches (read it as
-``replay_cuda.LAUNCHES``).
+``replay_cuda.LAUNCHES``).  A row that does not fit one CTA's shared memory
+(:func:`.evolve_cuda.row_fits_shared`) keeps its state in a scratch of
+device memory that the wrapper allocates; the kernel body is the same.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from .. import _build
 from ..config import ModelConfig
 from .evolve import EvolveResult
+from .evolve_cuda import row_fits_shared, shared_optin_bytes
 from .replay import check_replay_inputs, kick_table, schedule_config
 
 LAUNCHES = 0
@@ -62,6 +65,9 @@ def replay_events_cuda(cfg: ModelConfig, sched: torch.Tensor,
     accept = torch.empty(rows, dtype=torch.bool, device=dev)
     wtab = kick_table(cfg, dev)
     cfg32 = schedule_config(cfg)
+    scratch = (None if row_fits_shared(N, M, torch.float64, "replay",
+                                       shared_optin_bytes(dev)) else
+               torch.empty(rows * 3 * N, dtype=torch.float64, device=dev))
 
     lib = _build.load_library()
     with torch.cuda.device(dev):
@@ -71,7 +77,9 @@ def replay_events_cuda(cfg: ModelConfig, sched: torch.Tensor,
             n_sched.data_ptr(), init_ind.data_ptr(), wtab.data_ptr(),
             last_ind.data_ptr(), last_time.data_ptr(),
             crossed_ind.data_ptr(), crossed_time.data_ptr(),
-            accept.data_ptr(), P, R, N, M, E, S, Q, cfg32.counter_max,
+            accept.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), P, R, N, M, E,
+            S, Q, cfg32.counter_max,
             cfg.vth, cfg.drive, cfg.vth - cfg.drive, cfg.t_horizon,
             cfg32.root_tol, stream)
     _build.check(lib, code, "replay kernel launch")

@@ -7,13 +7,19 @@ shape, f32 compute, result in ``xq.dtype``, tables of at most
 ``MAX_TABLE`` nodes):
 
 - :func:`lerp1d` ``(xq, fp, x0, dx)``: clamped lerp on the uniform grid
-  ``x0 + i*dx`` (K3).  Tables of more than 8192 nodes with at least 131072
-  queries go to :func:`lerp1d_binned`, the JAX package's rule.
+  ``x0 + i*dx`` (K3).
 - :func:`lerp1d_binned` ``(xq, fp, x0, dx, n_batches=512)``: the same
   function on value-sorted batches of queries (K4).
 - :func:`make_interp1d` ``(xp, fp, oversample=4)`` and :func:`interp1d`:
   strictly increasing non-uniform nodes, ``numpy.interp`` semantics (K5);
-  at least 262144 queries on more than 1024 nodes take the sorted route.
+  the interpolant's ``method="sorted"`` runs K5 on value-sorted batches.
+
+The entry points send no query to a sorted route of their own accord,
+where the JAX package's thresholds do (``interp_pallas.py:300,517``): on
+an H100 the batch sort alone takes longer than K3 or K5 on the unsorted
+queries at every table size (1k to 64k nodes), query count (131072 to 10M)
+and distribution (uniform, already sorted, clustered) that
+``tools/interp1d_route_study.py`` measured.
 
 Each kernel has a plain PyTorch version beside it (:func:`lerp1d_plain`,
 :func:`lerp1d_sorted_plain`, :func:`interp1d_plain`) that follows the
@@ -42,24 +48,12 @@ LAUNCHES = {"lerp1d": 0, "lerp1d_sorted": 0, "interp1d": 0}
 
 
 def _pow2_batches(Q: int, target_qb: int = 4096) -> int:
-    """Batch count of the sorted routes: the largest power of two with row
-    length >= ``target_qb``, between 8 and 512.
+    """Batch count of the sorted non-uniform route: the largest power of
+    two with row length >= ``target_qb``, between 8 and 512.
 
     The JAX package's rule (``interp_pallas.py:83-92``), set by its sorts on
     a v5e; kept unchanged on the card."""
     return max(8, min(512, 1 << max(0, (Q // target_qb).bit_length() - 1)))
-
-
-def _lerp1d_sorted_route(n: int, Q: int) -> bool:
-    """``lerp1d``'s rule (``interp_pallas.py:300``): more than 8192 nodes
-    and at least 131072 queries go to the sorted kernel."""
-    return n > 8192 and Q >= 131072
-
-
-def _interp1d_sorted_route(n: int, Q: int) -> bool:
-    """``make_interp1d``'s rule (``interp_pallas.py:517``, ``n_chunks >
-    8``): at least 262144 queries on more than 1024 nodes go sorted."""
-    return Q >= 262144 and n > 1024
 
 
 def _check_nodes(n: int) -> None:
@@ -146,8 +140,8 @@ def sort_batches(q32: torch.Tensor, n_batches: int):
 
 
 def _scatter(vals: torch.Tensor, order: torch.Tensor, Q: int) -> torch.Tensor:
-    """``out[order[k]] = vals[k]``, pads dropped (``order`` is a
-    permutation of ``range(len(vals))``, pads last)."""
+    """``out[order[k]] = vals[k]``, pads (ids ``>= Q``) dropped (``order``
+    is a permutation of ``range(len(vals))``)."""
     return torch.empty_like(vals).scatter_(0, order, vals)[:Q]
 
 
@@ -181,14 +175,21 @@ class Interp1d:
     def m(self) -> int:
         return self.bucket.shape[0]
 
-    def __call__(self, xq: torch.Tensor) -> torch.Tensor:
+    def __call__(self, xq: torch.Tensor, *,
+                 method: str = "direct") -> torch.Tensor:
+        """Interpolate ``xq``.  ``method``: ``"direct"`` (K5 on the
+        queries in id order) or ``"sorted"`` (value-sorted batches, K5
+        with an order array).  Both routes compute the same values."""
         _check_queries("interp1d", xq, self.nodes)
+        if method not in ("direct", "sorted"):
+            raise ValueError(f"method must be 'direct' or 'sorted'; got "
+                             f"{method!r}")
         q = _flat_f32(xq)
         Q = q.shape[0]
         if Q == 0:
             return torch.empty(xq.shape, dtype=xq.dtype, device=xq.device)
         run = interp1d_cuda if _on_card(q) else interp1d_plain
-        if _interp1d_sorted_route(self.n, Q):
+        if method == "sorted":
             qs, order = sort_batches(q, _pow2_batches(Q))
             out = run(self, qs, order, Q)
         else:
@@ -279,9 +280,13 @@ def lerp1d_cuda(q32: torch.Tensor, fp32: torch.Tensor, x0: float,
 def lerp1d_sorted_cuda(qs: torch.Tensor, order: torch.Tensor,
                        fp32: torch.Tensor, x0: float, inv_dx: float,
                        Q: int, n_batches: int) -> torch.Tensor:
-    """K4 on the card: one CTA per group of sorted queries of one batch,
-    the group's node span staged in shared memory, each result written to
-    its query id."""
+    """K4 on the card, on ``n_batches`` rows of sorted values ``qs`` and
+    their ids ``order``, a permutation of ``range(len(qs))`` with the pads
+    (ids ``>= Q``) anywhere: one CTA per batch of up to 12288 queries, each
+    result put in shared memory at its id's place and the batch written out
+    in id order where its ids are its own range (as :func:`sort_batches`
+    makes them), else each result written straight to its id; larger
+    batches write each result straight to its id."""
     _check_kernel_args("lerp1d_sorted_cuda", fp32, qs, order)
     _check_order("lerp1d_sorted_cuda", qs, order, Q)
     if fp32.dtype != torch.float32 or qs.shape[0] % n_batches:
@@ -321,12 +326,8 @@ def lerp1d(xq: torch.Tensor, fp: torch.Tensor, x0: float,
            dx: float) -> torch.Tensor:
     """Uniform-grid 1-D lerp, clamped: ``numpy.interp`` on the nodes
     ``x0 + i*dx``.  Queries of any shape, computed in f32, returned in
-    ``xq.dtype``; ``fp`` has 2 to ``MAX_TABLE`` nodes.  More than 8192
-    nodes with at least 131072 queries route to :func:`lerp1d_binned`."""
+    ``xq.dtype``; ``fp`` has 2 to ``MAX_TABLE`` nodes."""
     _check_uniform("lerp1d", xq, fp)
-    if _lerp1d_sorted_route(fp.shape[0], xq.numel()):
-        return lerp1d_binned(xq, fp, x0, dx,
-                             n_batches=_pow2_batches(xq.numel()))
     q = _flat_f32(xq)
     if q.shape[0] == 0:
         return torch.empty(xq.shape, dtype=xq.dtype, device=xq.device)
@@ -338,10 +339,10 @@ def lerp1d(xq: torch.Tensor, fp: torch.Tensor, x0: float,
 
 def lerp1d_binned(xq: torch.Tensor, fp: torch.Tensor, x0: float, dx: float,
                   *, n_batches: int = 512) -> torch.Tensor:
-    """:func:`lerp1d`'s function for large tables: the queries are split
-    into ``n_batches`` contiguous id ranges, each is value-sorted
-    (:func:`sort_batches`), and K4 reads each sorted group's node span from
-    shared memory and writes each result to its query id."""
+    """:func:`lerp1d`'s function on value-sorted batches: the queries are
+    split into ``n_batches`` contiguous id ranges, each is value-sorted
+    (:func:`sort_batches`), and K4 computes them in sorted order and writes
+    each result to its query id."""
     _check_uniform("lerp1d_binned", xq, fp)
     if not (isinstance(n_batches, int) and n_batches >= 1):
         raise ValueError(f"n_batches must be a positive int; got "

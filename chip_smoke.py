@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds the evolve
-kernel against its plain PyTorch version on the card (f32 and f64, and at
-the shapes the slice gives it), runs the reference's
-``Driver.cu`` program through the public API (``make_residual_fn`` ->
-``newton_solve`` -> ``num_unstable_eigenvalues`` at N=512, R=1000, f32),
-and times one map evaluation at N=1024, R=1024.  Then the batched 2-D
+kernel against its plain PyTorch version on the card (f32 and f64, every
+lane and with the certified window, and at the shapes the slice gives it),
+runs the reference's ``Driver.cu`` program through the public API
+(``make_residual_fn`` -> ``newton_solve`` -> ``num_unstable_eigenvalues`` at
+N=512, R=1000, f32), and times one map evaluation at config 3 (N=1024,
+R=1024, ``evolve_window=128`` as the JAX bench runs it) beside the same
+evaluation on every lane, requiring every row of the two equal.  Then the
+batched 2-D
 bilinear path (``interp2d``): ``bilinear_batched`` at BASELINE config 2
 (64 grids of 256x256, 1M queries, f32; ``method="auto"`` -> the gather
 kernel), its large-grid leg (8 x 1024x1024, 1M queries; ``auto`` -> the
@@ -21,18 +24,26 @@ with the L2 flushed before each call, device time by ``torch.profiler``
 beside ``grid_sample``'s, and the host time per wrapper call.  Then the 1-D
 family (``interp1d``): ``lerp1d`` at BASELINE
 config 1 (1000 nodes, 10M queries; the uniform-grid kernel), at 65536 nodes
-with 2M queries (routed to the sorted-batch kernel) and ``make_interp1d``
-on 4096 non-uniform nodes with 2M queries (the non-uniform kernel on the
-sorted route), with small tables and extreme queries through all three
+with 2M queries (the same kernel: the card study of
+``tools/interp1d_route_study.py`` found no shape where a sorted route
+wins), ``lerp1d_binned`` there (the sorted-batch kernel) and
+``make_interp1d`` on 4096 non-uniform nodes with 2M queries (the
+non-uniform kernel, direct and on the sorted route), with small tables
+and extreme queries through all three
 kernels; each kernel against its plain version and ``numpy.interp`` in
 float64, and timed, with ``grid_sample`` on a 1 x n image beside the
-uniform-grid kernels.  Then the staged Newton to ``|F| <= 1e-8``
-(``staged``) at BASELINE config 4 (N=4096, R=64, f64, sigma 0.1): the
-evolve kernel's firing-order log against the plain log, the replay kernel
+uniform-grid kernels.  Then the launch-size repairs (``repairs``): 65536
+grids through every 2-D kernel, ``lerp1d_binned`` with 70000 batches, and
+the evolve and replay kernels at N above one CTA's shared memory (rows in
+device memory), each against its plain version.  Then the staged Newton to
+``|F| <= 1e-8`` (``staged``) at BASELINE config 4 (N=4096, R=64, f64, sigma
+0.1, ``evolve_window=512``): the evolve kernel's firing-order log against
+the same kernel on every lane and the plain log, the replay kernel
 (K2) against the plain replay at 64 and 256 rows, the replay against the
 direct fp64 evolve, ``newton_solve_staged`` from the ``Driver.cu`` guess
 (cold) and from the guess + 1e-3 (warm) with the residual recomputed,
-iterations per stage, launches, one accurate map evaluation split into
+iterations per stage, launches, the warm solve on every lane beside it,
+one accurate map evaluation split into
 discovery and replay, K2's device time and the card's idle share by
 ``torch.profiler``.  Every ``kernels`` entry carries its bound (bytes or
 operations over the H100 SXM data sheet's peaks) and, where one PyTorch
@@ -70,6 +81,7 @@ SLICE_N, SLICE_R = 512, 1000
 # 0.1), and converges in 2-4 iterations with 3e-4 in every one of those.
 SLICE_FD_EPSILON = 3e-4
 MAP_N, MAP_R = 1024, 1024
+MAP_WINDOW = 128                       # config 3's evolve_window (bench.py:405)
 TARGETS = {"float64": {"identical": 0.99, "time": 1e-9, "residual": 1e-8},
            "float32": {"identical": 0.95, "time": None, "residual": 2e-5}}
 # interp2d: BASELINE config 2 (bench.py:120-149) and its fp64 and large-grid
@@ -110,11 +122,10 @@ INTERP1D_BARS = {"vs_plain": 1e-6, "vs_numpy": 1e-5,
 INTERP1D_SRC = f"{PKG}/csrc/interp1d.cu"
 # staged: BASELINE config 4 (bench.py:426-503): N=4096, R=64, f64, sigma
 # 0.1, root_tol 1e-12, max_events 4096, Newton to |F| <= 1e-8 from the
-# Driver.cu guess (f32, as the JAX bench passes it) and from it + 1e-3.
-# The JAX config's evolve_window=512 is left out: the port evaluates every
-# lane, which computes the same function.
+# Driver.cu guess (f32, as the JAX bench passes it) and from it + 1e-3,
+# with the JAX config's certified window of 512 lanes (bench.py:438-439).
 CONFIG4 = {"n_neurons": 4096, "n_real": 64, "dtype": "float64",
-           "root_tol": 1e-12, "max_events": 4096}
+           "root_tol": 1e-12, "max_events": 4096, "evolve_window": 512}
 STAGED_TOL = 1e-8
 STENCIL_EPS = 1e-6                     # the frozen-fwd stencil's default
 # K2 vs plain: the same fp64 formulas without FMA (expect 0.0); the replay
@@ -128,14 +139,21 @@ REPLAY_SRC = f"{PKG}/csrc/replay.cu"
 # Peaks of one H100 SXM (NVIDIA's data sheet): memory, and float32 and
 # float64 outside the tensor cores, in bytes/s and operations/s.
 PEAK = {"bytes": 3.35e12, "float32": 67e12, "float64": 34e12}
-# Operations per lane and event that every lane does whatever the data,
-# counted from csrc/events.cuh, evolve.cu and replay.cu with each exp or
-# pow as one operation and the event-time Newton steps of firing lanes
-# left out, so the bound is a lower bound.  K1: fire decision 14, first
-# residual and its test 23, argmin 2, advance 13, kick 12, synapse 6.
-# K2: decay 3, advance 10, kick index 3, synapse 3.
-K1_OPS_PER_LANE_EVENT = 70
+# Operations per lane and event, counted from csrc/events.cuh, evolve.cu
+# and replay.cu with each exp, log or pow as one operation and the
+# event-time Newton steps of firing lanes left out, so the bound is a lower
+# bound.  K1, on each lane it evaluates (every lane, or the window's and
+# every lane of an event that fell back): fire decision 14, first residual
+# and its test 23, argmin 2; on every lane: advance 13, kick-table index 3,
+# synapse 6; on each lane outside the window: the certificate's ratio and
+# minimum 9.  K2: decay 3, advance 10, kick index 3, synapse 3.
+K1_EVAL_OPS, K1_ADVANCE_OPS, K1_CERT_OPS = 39, 22, 9
 K2_OPS_PER_LANE_EVENT = 19
+# repairs: more grids than one launch dimension holds, more 1-D batches,
+# and N above one CTA's shared memory (f64 evolve: 8273, replay: 8297)
+REPAIR_GRIDS = (65536, 6, 9, 5)
+REPAIR_BATCHES = (1000, 140_001, 70_000)   # nodes, queries, batches
+REPAIR_EVOLVE_N, REPAIR_REPLAY_N, REPAIR_R = 10240, 8448, 2
 
 
 class CheckFailed(RuntimeError):
@@ -183,13 +201,21 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def is_device_work(e) -> bool:
+    """Whether a profiler event is device work (a kernel, copy or set), not
+    an annotation the profiler draws on the device's timeline."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep"))
+
+
 def device_profile(fn, torch):
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activities).
     Returns ``(out, kernels, busy_ms)``: device time by kernel name as
     ``{name: [launches, total_us]}`` and the union of the device events'
     time ranges.  Profiling costs host time: set busy_ms against an
     unprofiled wall."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -197,7 +223,7 @@ def device_profile(fn, torch):
         torch.cuda.synchronize()
     kernels, spans = {}, []
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if not is_device_work(e):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         k = kernels.setdefault(e.name, [0, 0.0])
@@ -242,13 +268,15 @@ def time_diff(a, b, rows) -> float:
                float((a.crossed_time - b.crossed_time)[rows].abs().max()))
 
 
-def kernel_vs_plain(pt, torch, dev, dtype: str, n_real: int, Z):
+def kernel_vs_plain(pt, torch, dev, dtype: str, n_real: int, Z, window=0):
     """K1 and its plain version on the same inputs: the lifts of the stack
-    ``Z`` at N=512 under the seed-0 draw of ``n_real`` realisations."""
+    ``Z`` at N=512 under the seed-0 draw of ``n_real`` realisations, on
+    every lane or with the certified window of ``window`` lanes."""
     from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
-    from armadillocudalinearinterpolation_torch.model.evolve import (
-        evolve_ensemble)
-    cfg = pt.ModelConfig(n_neurons=SLICE_N, n_real=n_real, dtype=dtype)
+    from armadillocudalinearinterpolation_torch.model.evolve_batched import (
+        evolve_ensemble_batched)
+    cfg = pt.ModelConfig(n_neurons=SLICE_N, n_real=n_real, dtype=dtype,
+                         evolve_window=window)
     params = pt.MapParams.create(BETA, SIGMA, dtype=dtype, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     beta = pt.sample_beta(cfg, params, gen, device=dev)
@@ -259,15 +287,15 @@ def kernel_vs_plain(pt, torch, dev, dtype: str, n_real: int, Z):
 
     k_ms, rk = cuda_ms(lambda: evolve_cuda.evolve_ensemble_cuda(
         cfg, v0, s0, beta, init_ind), torch)
-    p_ms, rp = cuda_ms(lambda: evolve_ensemble(cfg, v0, s0, beta, init_ind),
-                       torch)
+    p_ms, rp = cuda_ms(lambda: evolve_ensemble_batched(cfg, v0, s0, beta,
+                                                       init_ind), torch)
 
     same = identical_rows(rk, rp)
     dtime = time_diff(rk, rp, same)
     fk, fp = evolve_residual(pt, cfg, Z, rk), evolve_residual(pt, cfg, Z, rp)
     dres = float((fk - fp).abs().max())
     row = {"phase": "kernel_vs_plain", "dtype": dtype, "N": SLICE_N,
-           "R": n_real, "P": P, "rows": int(same.numel()),
+           "R": n_real, "P": P, "window": window, "rows": int(same.numel()),
            "identical_share": float(same.float().mean()),
            "max_time_diff_identical_rows": dtime,
            "max_residual_diff": dres,
@@ -275,7 +303,7 @@ def kernel_vs_plain(pt, torch, dev, dtype: str, n_real: int, Z):
            "kernel_ms_single_call": k_ms, "plain_ms_single_call": p_ms,
            "targets": TARGETS[dtype]}
     emit(row)
-    tg, what = TARGETS[dtype], f"{dtype} P={P} R={n_real}"
+    tg, what = TARGETS[dtype], f"{dtype} P={P} R={n_real} W={window}"
     require(row["residual_finite"], f"{what}: non-finite residual")
     require(row["identical_share"] >= tg["identical"],
             f"{what}: identical rows {row['identical_share']:.4f} < "
@@ -340,36 +368,68 @@ def run_slice(pt, torch, dev):
     return row
 
 
-def map_eval(pt, torch, dev, smi: str):
-    """One map evaluation at config 3 (N=1024, R=1024, sigma=0.1, f32):
-    the kernel against the plain version on the card, in turns."""
-    cfg = pt.ModelConfig(n_neurons=MAP_N, n_real=MAP_R, dtype="float32")
-    params = pt.MapParams.create(BETA, SIGMA, dtype="float32", device=dev)
-    beta = pt.sample_beta(cfg, params,
-                          torch.Generator(device=dev).manual_seed(0))
-    Fk = pt.make_residual_fn(cfg, params, 0, device=dev, beta=beta,
-                             evolve_backend="cuda")
-    Fp = pt.make_residual_fn(cfg, params, 0, device=dev, beta=beta,
-                             evolve_backend="torch")
-    z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
-    fk, fp = Fk(z0), Fp(z0)                   # warm-up
-    torch.cuda.synchronize()
-    k_ms, p_ms = [], []
-    for i in range(6):
-        k_ms.append(cuda_ms(lambda: Fk(z0), torch)[0])
-        if i < 3:
-            p_ms.append(cuda_ms(lambda: Fp(z0), torch)[0])
+def k1_ops(N: int, window: int, events: int, fallbacks: int) -> int:
+    """K1's operations for ``events`` events of N lanes: every lane
+    evaluated (``window`` 0), or the window's lanes, the certificate on the
+    rest and every lane again for each event that fell back."""
+    if not window:
+        return events * N * (K1_EVAL_OPS + K1_ADVANCE_OPS)
+    return (events * (window * K1_EVAL_OPS + (N - window) * K1_CERT_OPS
+                      + N * K1_ADVANCE_OPS)
+            + fallbacks * N * K1_EVAL_OPS)
 
-    # one kernel evaluation, layer by layer
+
+def map_eval(pt, torch, dev, smi: str):
+    """One map evaluation at config 3 (N=1024, R=1024, sigma=0.1, f32, the
+    certified window of 128 lanes): the kernel against the plain windowed
+    version on the card, in turns, and the kernel on every lane beside it,
+    which must give every row equal.  The launch count is set to 0 just
+    before the first windowed evaluation and read just after."""
     from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
     from armadillocudalinearinterpolation_torch.model.evolve import (
         evolve_ensemble)
+    from armadillocudalinearinterpolation_torch.model.evolve_batched import (
+        evolve_ensemble_batched)
     from armadillocudalinearinterpolation_torch.solvers.linalg import (
         solve_dense)
+    cfg = pt.ModelConfig(n_neurons=MAP_N, n_real=MAP_R, dtype="float32",
+                         evolve_window=MAP_WINDOW)
+    cfg_full = cfg.with_(evolve_window=0)
+    params = pt.MapParams.create(BETA, SIGMA, dtype="float32", device=dev)
+    beta = pt.sample_beta(cfg, params,
+                          torch.Generator(device=dev).manual_seed(0))
+    Fk, Fk_full, Fp = (pt.make_residual_fn(c, params, 0, device=dev,
+                                           beta=beta, evolve_backend=b)
+                       for c, b in ((cfg, "cuda"), (cfg_full, "cuda"),
+                                    (cfg, "torch")))
+    z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    evolve_cuda.LAUNCHES = 0
+    fk = Fk(z0)
+    torch.cuda.synchronize()
+    launches = evolve_cuda.LAUNCHES
+    fk_full, fp = Fk_full(z0), Fp(z0)          # and warm-up
+    torch.cuda.synchronize()
+    k_ms, full_ms, p_ms = [], [], []
+    for i in range(6):
+        k_ms.append(cuda_ms(lambda: Fk(z0), torch)[0])
+        full_ms.append(cuda_ms(lambda: Fk_full(z0), torch)[0])
+        if i < 3:
+            p_ms.append(cuda_ms(lambda: Fp(z0), torch)[0])
+
+    # one kernel evaluation, layer by layer, windowed and on every lane
     U = emap.z_to_u(z0[None])
     init_ind, (v0, s0) = (pt.initial_spike_indices(cfg, z0[None]),
                           pt.lift(cfg, params, U))
-    res = evolve_cuda.evolve_ensemble_cuda(cfg, v0, s0, beta, init_ind)
+    fallbacks = torch.zeros(MAP_R, dtype=torch.int32, device=dev)
+    res = evolve_cuda.evolve_ensemble_cuda(cfg, v0, s0, beta, init_ind,
+                                           fallbacks=fallbacks)
+    res_full = evolve_cuda.evolve_ensemble_cuda(cfg_full, v0, s0, beta,
+                                                init_ind)
+    same = identical_rows(res, res_full) & (
+        (res.last_time == res_full.last_time).all(1)
+        & (res.crossed_time == res_full.crossed_time).all(1))
+    identical_share = float(same.float().mean())
 
     def restrict():
         pos = pt.restrict_positions(cfg, res).reshape(1, MAP_R, -1)
@@ -377,33 +437,59 @@ def map_eval(pt, torch, dev, smi: str):
         return emap.assemble_residual(cfg, U, mean)
 
     jac = torch.eye(3, device=dev) + 0.1
+    evolve = {
+        "evolve": lambda: evolve_cuda.evolve_ensemble_cuda(
+            cfg, v0, s0, beta, init_ind),
+        "evolve_full_lane": lambda: evolve_cuda.evolve_ensemble_cuda(
+            cfg_full, v0, s0, beta, init_ind)}
     stages = {
         "lift": lambda: (pt.initial_spike_indices(cfg, z0[None]),
                          pt.lift(cfg, params, U)),
-        "evolve": lambda: evolve_cuda.evolve_ensemble_cuda(
-            cfg, v0, s0, beta, init_ind),
+        **evolve,
         "restrict_mean_residual": restrict,
         "newton_solve_3x3": lambda: solve_dense(jac, fk),
     }
     layers = {name: statistics.median(cuda_ms(fn, torch)[0]
                                       for _ in range(5))
               for name, fn in stages.items()}
-    # the plain evolve alone, on the same inputs as the kernel's "evolve"
-    plain_evolve = statistics.median(
-        cuda_ms(lambda: evolve_ensemble(cfg, v0, s0, beta, init_ind),
-                torch)[0] for _ in range(3))
+    device = {name: device_us(fn, torch, n=3)[0]
+              for name, fn in evolve.items()}
+    # the plain evolves alone, on the same inputs as the kernel's
+    plain = {
+        "windowed": statistics.median(cuda_ms(
+            lambda: evolve_ensemble_batched(cfg, v0, s0, beta, init_ind),
+            torch)[0] for _ in range(3)),
+        "full_lane": statistics.median(cuda_ms(
+            lambda: evolve_ensemble(cfg_full, v0, s0, beta, init_ind),
+            torch)[0] for _ in range(3))}
+    events, n_fallbacks = int(res.n_events.sum()), int(fallbacks.sum())
     row = {"phase": "map_eval", "N": MAP_N, "R": MAP_R, "dtype": "float32",
+           "evolve_window": MAP_WINDOW, "launches": launches,
            "kernel_ms_median": statistics.median(k_ms),
            "kernel_ms": k_ms,
+           "full_lane_ms_median": statistics.median(full_ms),
+           "full_lane_ms": full_ms,
            "plain_ms_median": statistics.median(p_ms), "plain_ms": p_ms,
            "residual_diff": float((fk - fp).abs().max()),
+           "residual_diff_full_lane": float((fk - fk_full).abs().max()),
+           "windowed_vs_full_lane_identical_rows": identical_share,
            "layers_ms_median_of_5": layers,
-           "plain_evolve_ms_median_of_3": plain_evolve,
-           "evolve_events_total": int(res.n_events.sum()),
+           "evolve_device_us_mean_of_3": device,
+           "plain_evolve_ms_median_of_3": plain,
+           "evolve_events_total": events,
+           "evolve_fallbacks_total": n_fallbacks,
            "evolve_bytes": nbytes(v0, s0, beta, init_ind, *res),
            "card": smi}
     emit(row)
     require(bool(torch.isfinite(fk).all()), "map_eval: non-finite residual")
+    require(identical_share == 1.0, "map_eval: the windowed K1 differs from "
+            f"the full-lane K1 in {1 - identical_share:.4%} of rows")
+    require(bool(torch.equal(fk, fk_full)),
+            "map_eval: windowed and full-lane residuals differ")
+    require(row["residual_diff"] <= TARGETS["float32"]["residual"],
+            f"map_eval: kernel vs plain residual {row['residual_diff']}")
+    require(launches == 1, f"map_eval: {launches} K1 launches for one "
+            "evaluation")
     return row
 
 
@@ -469,18 +555,42 @@ def timed_cold(fn, torch, flush, n=10):
     return statistics.median(ms)
 
 
-def device_us(fn, torch, n=5):
-    """Device time per call in µs by ``torch.profiler`` (``n`` calls, all
-    the kernels each call launches), with the time by kernel name."""
+def device_us(fn, torch, n=5, tries=4):
+    """Device time per call in µs by ``torch.profiler`` over ``n`` calls,
+    with the time by kernel name, or ``(None, {})`` if no profile of
+    ``tries`` holds a device event ("not measured"; ``main`` fails a run
+    in which an entry of the ``kernels`` line has none).
+
+    A profile misses some device events, most often the first kernels of a
+    profile, and now and then all of them: so the ``n`` timed calls follow
+    ``n`` untimed ones in the profiler's warmup step, an empty profile is
+    taken again, and each kernel counts as its mean time over the events
+    recorded times its launches per call (events over ``n``, rounded),
+    which one missed event does not bias."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):     # a profile now and then records no device event
-        _, kern, _ = device_profile(lambda: [fn() for _ in range(n)], torch)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kern = {}
+        for e in prof.events():
+            if is_device_work(e):
+                k = kern.setdefault(e.name, [0, 0.0])
+                k[0] += 1
+                k[1] += e.time_range.elapsed_us()
         if kern:
-            break
-    require(bool(kern), "device_us: the profiler recorded no kernel")
-    return (sum(v[1] for v in kern.values()) / n,
-            {k: v[1] / n for k, v in kern.items()})
+            per_call = {name: us / count * max(1, round(count / n))
+                        for name, (count, us) in kern.items()}
+            return sum(per_call.values()), per_call
+    return None, {}
 
 
 def host_us(fn, torch, n=1000):
@@ -862,9 +972,11 @@ def nan_aware_err(got, want) -> float:
 
 
 def interp1d(pt, torch, dev, smi: str):
-    """The 1-D family: the three legs through the public entry points with
-    the launch counts set to 0 just before each and read just after; each
-    kernel against its plain version and numpy.interp; timings."""
+    """The 1-D family: the legs through the public entry points with the
+    launch counts set to 0 just before each and read just after (``lerp1d``
+    and ``make_interp1d``'s direct routes, ``lerp1d_binned`` and the sorted
+    non-uniform route); each kernel against its plain
+    version and numpy.interp; timings, device time by the profiler."""
     import numpy as np
     from armadillocudalinearinterpolation_torch.ops import interp1d_cuda as i1
     launches = i1.LAUNCHES
@@ -892,18 +1004,26 @@ def interp1d(pt, torch, dev, smi: str):
         torch.cuda.synchronize()
         return out, dict(launches)
 
+    nbK, nbN = i1._pow2_batches(QK), i1._pow2_batches(QN)
     out1, route1 = drive(lambda: pt.lerp1d(q1, fp1, x0, dx1))
     outK, routeK = drive(lambda: pt.lerp1d(qK, fpK, x0, dxK))
-    outN, routeN = drive(lambda: tableN(qN))
+    outKb, routeKb = drive(lambda: pt.lerp1d_binned(qK, fpK, x0, dxK,
+                                                    n_batches=nbK))
+    outNa, routeNa = drive(lambda: tableN(qN))
+    outN, routeN = drive(lambda: tableN(qN, method="sorted"))
     for name, out, Q in (("config 1", out1, Q1), ("64k", outK, QK),
-                         ("non-uniform", outN, QN)):
+                         ("64k binned", outKb, QK),
+                         ("non-uniform", outNa, QN),
+                         ("non-uniform sorted", outN, QN)):
         require(out.shape == (Q,) and out.dtype == f32
                 and bool(torch.isfinite(out).all()),
                 f"interp1d {name}: shape {tuple(out.shape)}, {out.dtype}, "
                 "or non-finite values")
     for name, route, key in (("config 1", route1, "lerp1d"),
-                             ("64k", routeK, "lerp1d_sorted"),
-                             ("non-uniform", routeN, "interp1d")):
+                             ("64k", routeK, "lerp1d"),
+                             ("64k binned", routeKb, "lerp1d_sorted"),
+                             ("non-uniform", routeNa, "interp1d"),
+                             ("non-uniform sorted", routeN, "interp1d")):
         want = {k: int(k == key) for k in launches}
         require(route == want, f"interp1d {name}: launched {route}, not "
                 f"one {key}")
@@ -911,7 +1031,6 @@ def interp1d(pt, torch, dev, smi: str):
     # each kernel against its plain version at the legs' shapes, and
     # against numpy.interp in float64 on the same f32 inputs
     lims1, limsK = i1.uniform_lims(x0, dx1), i1.uniform_lims(x0, dxK)
-    nbK, nbN = i1._pow2_batches(QK), i1._pow2_batches(QN)
     qsK, orderK = i1.sort_batches(qK, nbK)
     qsN, orderN = i1.sort_batches(qN, nbN)
     outK3 = i1.lerp1d_cuda(qK, fpK, *limsK)
@@ -926,13 +1045,14 @@ def interp1d(pt, torch, dev, smi: str):
     checks = {   # name: (kernel's result, reference, bar)
         "lerp1d_vs_plain": (out1, i1.lerp1d_plain(q1, fp1, *lims1), plain),
         "lerp1d_vs_numpy": (out1, numpy_uniform(q1_h, fp1_h, dx1), ref),
-        "lerp1d_sorted_vs_plain": (outK, i1.lerp1d_sorted_plain(
+        "lerp1d_sorted_vs_plain": (outKb, i1.lerp1d_sorted_plain(
             qsK, orderK, fpK, *limsK, QK), plain),
-        "lerp1d_sorted_vs_numpy": (outK, numpy_uniform(qK_h, fpK_h, dxK),
+        "lerp1d_sorted_vs_numpy": (outKb, numpy_uniform(qK_h, fpK_h, dxK),
                                    ref),
         "lerp1d_at_64k_vs_plain": (outK3, i1.lerp1d_plain(qK, fpK, *limsK),
                                    plain),
-        "lerp1d_at_64k_vs_sorted": (outK3, outK, plain),
+        "lerp1d_at_64k_vs_sorted": (outK3, outKb, plain),
+        "lerp1d_64k_entry_vs_sorted": (outK, outKb, plain),
         "interp1d_sorted_vs_plain": (outN, i1.interp1d_plain(
             tableN, qsN, orderN, QN), plain),
         "interp1d_sorted_vs_numpy": (outN, np.interp(
@@ -941,6 +1061,7 @@ def interp1d(pt, torch, dev, smi: str):
         "interp1d_vs_plain": (outN_direct, i1.interp1d_plain(tableN, qN),
                               plain),
         "interp1d_vs_sorted": (outN_direct, outN, plain),
+        "interp1d_entry_vs_sorted": (outNa, outN, plain),
     }
     # small tables with out-of-range, extreme and NaN queries, through all
     # three kernels (the sorted ones over padded batches)
@@ -1010,6 +1131,8 @@ def interp1d(pt, torch, dev, smi: str):
             qsK, orderK, fpK, *limsK, QK), QK),
         "sort_64k": (lambda: i1.sort_batches(qK, nbK), QK),
         "64k_entry": (lambda: pt.lerp1d(qK, fpK, x0, dxK), QK),
+        "64k_binned_entry": (lambda: pt.lerp1d_binned(
+            qK, fpK, x0, dxK, n_batches=nbK), QK),
         "lerp1d_at_64k": (lambda: i1.lerp1d_cuda(qK, fpK, *limsK), QK),
         "lerp1d_at_64k_plain": (lambda: i1.lerp1d_plain(qK, fpK, *limsK),
                                 QK),
@@ -1019,6 +1142,8 @@ def interp1d(pt, torch, dev, smi: str):
             tableN, qsN, orderN, QN), QN),
         "sort_nonuniform": (lambda: i1.sort_batches(qN, nbN), QN),
         "nonuniform_entry": (lambda: tableN(qN), QN),
+        "nonuniform_sorted_entry": (lambda: tableN(qN, method="sorted"),
+                                    QN),
         "interp1d": (lambda: i1.interp1d_cuda(tableN, qN), QN),
         "interp1d_plain": (lambda: i1.interp1d_plain(tableN, qN), QN),
     }
@@ -1027,6 +1152,11 @@ def interp1d(pt, torch, dev, smi: str):
     timed(calls["lerp1d"][0], torch)
     times = {k: timed(fn, torch) for k, (fn, _) in calls.items()}
     rate = {k: Q / (times[k][0] * 1e-3) / 1e9 for k, (_, Q) in calls.items()}
+    dev_keys = ("lerp1d", "lerp1d_sorted", "sort_64k", "64k_entry",
+                "64k_binned_entry", "lerp1d_at_64k", "interp1d_sorted",
+                "sort_nonuniform", "nonuniform_entry",
+                "nonuniform_sorted_entry", "interp1d")
+    dev_us = {k: device_us(calls[k][0], torch)[0] for k in dev_keys}
 
     # the one PyTorch call that computes K3's and K4's function, timed as a
     # yardstick and used nowhere in the port: grid_sample on a 1 x n image,
@@ -1044,7 +1174,7 @@ def interp1d(pt, torch, dev, smi: str):
 
     library = {}
     for key, (fp, q, dx, out) in {"lerp1d": (fp1, q1, dx1, out1),
-                                  "lerp1d_sorted": (fpK, qK, dxK, outK)
+                                  "lerp1d_sorted": (fpK, qK, dxK, outKb)
                                   }.items():
         args = grid_sample_1d(fp, q, dx)
         library[key] = {
@@ -1059,16 +1189,19 @@ def interp1d(pt, torch, dev, smi: str):
                       "nonuniform": INTERP_NONUNIFORM,
                       "small_tables": SMALL_TABLES},
            "launches": {"config1": route1, "64k": routeK,
-                        "nonuniform": routeN, "small": small_launches},
+                        "64k_binned": routeKb, "nonuniform": routeNa,
+                        "nonuniform_sorted": routeN,
+                        "small": small_launches},
            "n_batches": {"64k": nbK, "nonuniform": nbN},
            "nonuniform_S": tableN.S, "nonuniform_m": tableN.m,
            "max_abs_err": errs, "bars": bars,
            "ms_median_of_20": {k: v[0] for k, v in times.items()},
            "ms_back_to_back_mean_of_20": {k: v[1] for k, v in times.items()},
-           "sort_share_of_entry": {
-               "64k": times["sort_64k"][0] / times["64k_entry"][0],
+           "device_us_per_call": dev_us,
+           "sort_share_of_sorted_entry": {
+               "64k": times["sort_64k"][0] / times["64k_binned_entry"][0],
                "nonuniform": (times["sort_nonuniform"][0]
-                              / times["nonuniform_entry"][0])},
+                              / times["nonuniform_sorted_entry"][0])},
            "gq_per_s": rate, "library_grid_sample": library,
            "library_none": {"interp1d_kernel": "non-uniform nodes: no "
                             "single PyTorch call computes it"},
@@ -1084,40 +1217,179 @@ def interp1d(pt, torch, dev, smi: str):
                 "max_abs_err": max(errs[k] for k in err_keys),
                 "ms": times[key][0], "plain_ms": times[key + "_plain"][0],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": library[key]["ms"] if key in library else None}
+                "library_ms": library[key]["ms"] if key in library else None,
+                "device_us": dev_us[key],
+                "library_device_us": (library[key]["device_us"]
+                                      if key in library else None)}
 
     def vs_plain(part):
         return [k for k in errs if part in k and k.endswith("_vs_plain")]
 
     return [
-        entry("lerp1d_kernel", 246, "lerp1d", route1["lerp1d"],
+        entry("lerp1d_kernel", 246, "lerp1d",
+              route1["lerp1d"] + routeK["lerp1d"],
               [k for k in vs_plain("lerp1d_") if "sorted" not in k],
               (q1, fp1, out1)),
         entry("lerp1d_sorted_kernel", 138, "lerp1d_sorted",
-              routeK["lerp1d_sorted"], vs_plain("lerp1d_sorted"),
-              (qsK, orderK, fpK, outK)),
-        entry("interp1d_kernel", 344, "interp1d_sorted", routeN["interp1d"],
+              routeKb["lerp1d_sorted"],
+              vs_plain("lerp1d_sorted"), (qsK, orderK, fpK, outKb)),
+        entry("interp1d_kernel", 344, "interp1d_sorted",
+              routeNa["interp1d"] + routeN["interp1d"],
               vs_plain("interp1d") + ["dense_cluster_vs_plain"],
               (qsN, orderN, tableN.nodes, tableN.bucket, outN)),
     ]
+
+
+def repairs(pt, torch, dev):
+    """The launch-size repairs, each through its public entry point with
+    the launch counts set to 0 just before and read just after, against the
+    plain versions: 65536 grids through both K7 bodies, the binning and K8,
+    and K6; ``lerp1d_binned`` with 70000 batches; K1 (every lane and
+    windowed) at f64 N=10240 and K2 at N=8448, whose rows do not fit one
+    CTA's shared memory."""
+    from armadillocudalinearinterpolation_torch.model import (
+        evolve_cuda, replay_cuda)
+    from armadillocudalinearinterpolation_torch.model.evolve import (
+        evolve_ensemble)
+    from armadillocudalinearinterpolation_torch.model.replay import (
+        replay_events)
+    from armadillocudalinearinterpolation_torch.ops import interp_cuda as ic
+    from armadillocudalinearinterpolation_torch.ops import interp1d_cuda as i1
+
+    def drive(fn):
+        for d in (ic.LAUNCHES, ic.BODIES, i1.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {**ic.LAUNCHES, **ic.BODIES, **i1.LAUNCHES,
+                  "evolve_kernel": evolve_cuda.LAUNCHES,
+                  "replay_kernel": replay_cuda.LAUNCHES}
+        return out, {k: v for k, v in counts.items() if v}
+
+    B, H, W, Q = REPAIR_GRIDS
+    p32, g32 = interp_inputs(torch, dev, REPAIR_GRIDS, torch.float32, 6,
+                             -3.0, W + 3.0)
+    p64, g64 = p32.double(), g32.double()
+    n1, Q1, nb1 = REPAIR_BATCHES
+    fp_h, x0, dx = sin_table(n1)
+    fp1 = torch.from_numpy(fp_h).to(dev)
+    q1 = torch.from_numpy(uniform_queries(Q1, -3.5, 3.5, 15,
+                                          extreme=True)).to(dev)
+    legs = {
+        "grids_full": lambda: pt.bilinear_batched(p32, g32, method="full"),
+        "grids_direct": lambda: ic.gather_cuda(p32, g32, body="direct"),
+        "grids_binned": lambda: pt.bilinear_batched(p32, g32,
+                                                    method="binned"),
+        "grids_f64": lambda: pt.bilinear_batched_f64(p64, g64),
+        "batches": lambda: pt.lerp1d_binned(q1, fp1, x0, dx,
+                                            n_batches=nb1),
+    }
+    outs, launched = {}, {}
+    for name, fn in legs.items():
+        outs[name], launched[name] = drive(fn)
+    want32 = ic.gather_plain(p32, g32)
+    errs = {"grids_full": max_abs(outs["grids_full"], want32),
+            "grids_direct": max_abs(outs["grids_direct"], want32),
+            "grids_binned": max_abs(outs["grids_binned"], want32),
+            "grids_f64": max_abs(outs["grids_f64"], ic.f64_plain(p64, g64)),
+            "batches": nan_aware_err(outs["batches"], i1.lerp1d_plain(
+                q1, fp1, *i1.uniform_lims(x0, dx)))}
+    bars = {"grids_full": INTERP_BARS["f32_vs_plain"],
+            "grids_direct": INTERP_BARS["f32_vs_plain"],
+            "grids_binned": INTERP_BARS["f32_vs_plain"],
+            "grids_f64": INTERP_BARS["f64"],
+            "batches": INTERP1D_BARS["vs_plain"]}
+    want_launches = {
+        "grids_full": {"bilinear_gather": 1, "gather_staged": 1},
+        "grids_direct": {"bilinear_gather": 1, "gather_direct": 1},
+        "grids_binned": {"bilinear_binning": 1, "bilinear_binned": 1,
+                         "binned_sync": 1},
+        "grids_f64": {"bilinear_f64": 1},
+        "batches": {"lerp1d_sorted": 1}}
+    for name in legs:
+        require(errs[name] <= bars[name],
+                f"repairs {name}: {errs[name]} > {bars[name]}")
+        require(launched[name] == want_launches[name],
+                f"repairs {name}: launched {launched[name]}, not "
+                f"{want_launches[name]}")
+
+    # K1 and K2 with their rows in device memory, on the Driver.cu guess
+    large = {}
+    for kind, N in (("evolve", REPAIR_EVOLVE_N), ("replay", REPAIR_REPLAY_N)):
+        cfg = pt.ModelConfig(n_neurons=N, n_real=REPAIR_R, dtype="float64",
+                             root_tol=1e-12, max_events=2 * N)
+        require(not evolve_cuda.row_fits_shared(
+                    N, cfg.n_spikes, torch.float64, kind,
+                    evolve_cuda.shared_optin_bytes(dev)),
+                f"repairs: a row of {N} lanes fits shared memory")
+        params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
+        beta = pt.sample_beta(cfg, params,
+                              torch.Generator(device=dev).manual_seed(0))
+        z = torch.tensor(INITIAL_GUESS, dtype=torch.float64, device=dev)[None]
+        ii = pt.initial_spike_indices(cfg, z).contiguous()
+        v0, s0 = (x.contiguous() for x in pt.lift(cfg, params,
+                                                    pt.z_to_u(z)))
+        if kind == "evolve":
+            k_ms, (rk, cnt) = cuda_ms(lambda: drive(
+                lambda: evolve_cuda.evolve_ensemble_cuda(
+                    cfg, v0, s0, beta, ii)), torch)
+            rw, cnt_w = drive(lambda: evolve_cuda.evolve_ensemble_cuda(
+                cfg.with_(evolve_window=512), v0, s0, beta, ii))
+            p_ms, rp = cuda_ms(lambda: evolve_ensemble(cfg, v0, s0, beta,
+                                                       ii), torch)
+            windowed_equal = bool(identical_rows(rw, rk).all()
+                                  and torch.equal(rw.last_time, rk.last_time)
+                                  and torch.equal(rw.crossed_time,
+                                                  rk.crossed_time))
+            require(windowed_equal and cnt_w == {"evolve_kernel": 1},
+                    "repairs: the windowed K1 at large N differs from K1")
+        else:
+            sched, n_ev = pt.compute_schedule(cfg, v0, s0, beta, ii)
+            k_ms, (rk, cnt) = cuda_ms(lambda: drive(
+                lambda: replay_cuda.replay_events_cuda(
+                    cfg, sched, n_ev, v0, s0, beta, ii[0])), torch)
+            p_ms, rp = cuda_ms(lambda: replay_events(
+                cfg, sched, n_ev, v0, s0, beta, ii[0]), torch)
+        same = bool(identical_rows(rk, rp).all())
+        d = time_diff(rk, rp, torch.ones_like(rk.accept))
+        bar = 1e-9 if kind == "evolve" else STAGED_BARS["k2_vs_plain_time"]
+        large[kind] = {"N": N, "R": REPAIR_R, "launched": cnt,
+                       "identical_ints": same, "max_time_diff": d,
+                       "events": [int(rk.n_events.min()),
+                                  int(rk.n_events.max())],
+                       "accepted": int(rk.accept.sum()),
+                       "kernel_ms_first_call": k_ms, "plain_ms": p_ms}
+        require(cnt == {f"{kind}_kernel": 1},
+                f"repairs: large-N {kind} launched {cnt}")
+        require(same and d <= bar,
+                f"repairs: large-N {kind} vs plain: {large[kind]}")
+    row = {"phase": "repairs", "grids": REPAIR_GRIDS,
+           "batches": REPAIR_BATCHES, "launches": launched,
+           "max_abs_err": errs, "bars": bars, "large_n": large}
+    emit(row)
+    return row
 
 
 def staged(pt, torch, dev, smi: str):
     """The staged Newton to 1e-8 at config 4: the solve from the guess
     (cold) and from the guess + 1e-3 (warm) through ``newton_solve_staged``
     with the launch counts set to 0 just before and read just after and
-    the residual recomputed by a fresh replay map; K1's log and K2 against
-    their plain versions; the replay against the direct fp64 evolve; the
-    timings and the profile."""
+    the residual recomputed by a fresh replay map, and the warm solve on
+    every lane beside it; K1's windowed log against K1 on every lane and
+    the plain windowed log; K2 against its plain version; the replay
+    against the direct fp64 evolve; the timings and the profiles."""
     from armadillocudalinearinterpolation_torch.model import (
         evolve_cuda, replay_cuda)
-    from armadillocudalinearinterpolation_torch.model.evolve import (
-        evolve_ensemble)
+    from armadillocudalinearinterpolation_torch.model.evolve_batched import (
+        evolve_ensemble_batched)
     from armadillocudalinearinterpolation_torch.model.replay import (
         compute_schedule, discovery_config, replay_events, schedule_width)
     from armadillocudalinearinterpolation_torch.solvers import staged as st
     bars = STAGED_BARS
     cfg = pt.ModelConfig(**CONFIG4)
+    cfg_full = cfg.with_(evolve_window=0)
     cfg32, E = discovery_config(cfg), schedule_width(cfg)
     N, R = cfg.n_neurons, cfg.n_real
     params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
@@ -1149,12 +1421,13 @@ def staged(pt, torch, dev, smi: str):
     z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
     solves = {}
     try:
-        for name, z in (("cold", z0), ("warm", z0 + 1e-3)):
+        for name, z, c in (("cold", z0, cfg), ("warm", z0 + 1e-3, cfg),
+                           ("warm_full_lane", z0 + 1e-3, cfg_full)):
             stages.clear()
             evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = pt.newton_solve_staged(cfg, params, z, beta=beta,
+            res = pt.newton_solve_staged(c, params, z, beta=beta,
                                          tolerance=STAGED_TOL)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1181,11 +1454,24 @@ def staged(pt, torch, dev, smi: str):
         for fname, fn in wrapped.items():
             setattr(st, fname, fn)
 
-    # K1's log on the guess's f32 discovery pass, against the plain log
+    # K1's windowed log on the guess's f32 discovery pass, against K1 on
+    # every lane (every row and entry equal) and the plain windowed log
+    log_fallbacks = torch.zeros(R, dtype=torch.int32, device=dev)
     log_ms, (rk, sk) = cuda_ms(lambda: evolve_cuda.evolve_ensemble_cuda(
+        cfg32, v32, s32, b32, ii[:1], record_schedule=E,
+        fallbacks=log_fallbacks), torch)
+    full_log_ms, (rf, sf) = cuda_ms(lambda: evolve_cuda.evolve_ensemble_cuda(
+        cfg32.with_(evolve_window=0), v32, s32, b32, ii[:1],
+        record_schedule=E), torch)
+    plain_log_ms, (rp, sp) = cuda_ms(lambda: evolve_ensemble_batched(
         cfg32, v32, s32, b32, ii[:1], record_schedule=E), torch)
-    plain_log_ms, (rp, sp) = cuda_ms(lambda: evolve_ensemble(
-        cfg32, v32, s32, b32, ii[:1], record_schedule=E), torch)
+    full_same = identical_rows(rk, rf) & (
+        (rk.last_time == rf.last_time).all(1)
+        & (rk.crossed_time == rf.crossed_time).all(1))
+    full_share = float(full_same.float().mean())
+    require(full_share == 1.0 and bool(torch.equal(sk, sf)),
+            f"staged: the windowed K1 log differs from the full-lane K1 "
+            f"log ({full_share:.4%} of rows equal)")
     same = identical_rows(rk, rp)
     log_share = float(same.float().mean())
     log_same = bool(torch.equal(sk[same], sp[same]))
@@ -1297,6 +1583,13 @@ def staged(pt, torch, dev, smi: str):
         prof["warm_kernels"] = {
             k: {"launches": v[0], "device_us": v[1]} for k, v in
             sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]}
+        _, kern, busy = device_profile(lambda: pt.newton_solve_staged(
+            cfg_full, params, z0 + 1e-3, beta=beta, tolerance=STAGED_TOL),
+            torch)
+        prof["warm_full_lane_device_busy_s"] = busy / 1e3
+        prof["warm_full_lane_kernels"] = {
+            k: {"launches": v[0], "device_us": v[1]} for k, v in
+            sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]}
     except Exception as exc:           # measurement only; checks are above
         prof["error"] = repr(exc)
 
@@ -1307,7 +1600,11 @@ def staged(pt, torch, dev, smi: str):
            "beta": BETA, "tolerance": STAGED_TOL, "bars": bars,
            "log": {"identical_share": log_share, "same_log_on_same_rows":
                    log_same, "residual_diff": log_res,
-                   "kernel_ms": log_ms, "plain_ms": plain_log_ms,
+                   "windowed_vs_full_lane_identical_rows": full_share,
+                   "fallbacks": int(log_fallbacks.sum()),
+                   "events": int(rk.n_events.sum()),
+                   "kernel_ms": log_ms, "full_lane_kernel_ms": full_log_ms,
+                   "plain_ms": plain_log_ms,
                    "events_per_row": [int(rk.n_events.min()),
                                       int(rk.n_events.max())]},
            "k2_vs_plain": k2, "replay_vs_direct_f64": vs_direct,
@@ -1332,9 +1629,14 @@ def staged(pt, torch, dev, smi: str):
         "launches": solves["cold"]["launches"]["replay_kernel"],
         "max_abs_err": max(v["max_time_diff"] for v in k2.values()),
         "ms": k2_ms, "plain_ms": plain64_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}
+        "bound_by": b_by, "library_ms": None,
+        "device_us": device_us(lambda: replay_cuda.replay_events_cuda(
+            *args64), torch, n=3)[0]}
     log_info = {"launches": solves["cold"]["launches"]["evolve_kernel"],
-                "identical_share": log_share, "ms_config4_f32": log_ms,
+                "identical_share": log_share,
+                "windowed_vs_full_lane_identical_rows": full_share,
+                "ms_config4_f32": log_ms,
+                "full_lane_ms_config4_f32": full_log_ms,
                 "plain_ms_config4_f32": plain_log_ms}
     return replay_entry, log_info
 
@@ -1366,46 +1668,64 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(_build.library_path().relative_to(ROOT))})
 
-    kernels = {"name": "evolve_kernel", "route": "cuda",
-               "source": f"{PKG}/csrc/evolve.cu",
-               "replaces": "armadillocudalinearinterpolation_tpu/model/"
-                           "evolve_pallas.py:101"}
+    k1 = {"route": "cuda", "source": f"{PKG}/csrc/evolve.cu",
+          "replaces": "armadillocudalinearinterpolation_tpu/model/"
+                      "evolve_pallas.py:101", "library_ms": None}
+    full = {"name": "evolve_kernel", **k1}
+    windowed = {"name": "evolve_kernel_windowed", **k1}
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
-    # R=64 at eps 1e-2 in both types; then the shapes the slice gives the
-    # kernel: its guess alone and its 3-point FD stack, at R=1000
+    # R=64 at eps 1e-2 in both types, every lane and windowed; then the
+    # shapes the slice gives the kernel: its guess alone and its 3-point FD
+    # stack, at R=1000
     slice_stack = fd_stack(torch, dev, f32, SLICE_FD_EPSILON)
     checks = [
-        kernel_vs_plain(pt, torch, dev, "float32", 64,
-                        fd_stack(torch, dev, f32, 1e-2)),
-        kernel_vs_plain(pt, torch, dev, "float64", 64,
-                        fd_stack(torch, dev, f64, 1e-2)),
+        kernel_vs_plain(pt, torch, dev, dtype, 64,
+                        fd_stack(torch, dev, t, 1e-2), window)
+        for window in (0, MAP_WINDOW) for dtype, t in (("float32", f32),
+                                                       ("float64", f64))
+    ] + [
         kernel_vs_plain(pt, torch, dev, "float32", SLICE_R, slice_stack[:1]),
         kernel_vs_plain(pt, torch, dev, "float32", SLICE_R, slice_stack[1:]),
     ]
-    kernels["max_abs_err"] = max(c["max_residual_diff"] for c in checks)
+    for entry, windowed_checks in ((full, False), (windowed, True)):
+        entry["max_abs_err"] = max(c["max_residual_diff"] for c in checks
+                                   if bool(c["window"]) == windowed_checks)
     slice_launches = run_slice(pt, torch, dev)["evolve_launches"]
     m = map_eval(pt, torch, dev, smi)
-    kernels["ms"] = m["layers_ms_median_of_5"]["evolve"]
-    kernels["plain_ms"] = m["plain_evolve_ms_median_of_3"]
-    kernels["bound_ms"], kernels["bound_by"] = bound(
-        m["evolve_bytes"],
-        K1_OPS_PER_LANE_EVENT * m["evolve_events_total"] * MAP_N, "float32")
-    kernels["library_ms"] = None
+    events = m["evolve_events_total"]
+    for entry, layer, plain, window, fallbacks in (
+            (full, "evolve_full_lane", "full_lane", 0, 0),
+            (windowed, "evolve", "windowed", MAP_WINDOW,
+             m["evolve_fallbacks_total"])):
+        entry["ms"] = m["layers_ms_median_of_5"][layer]
+        entry["plain_ms"] = m["plain_evolve_ms_median_of_3"][plain]
+        entry["bound_ms"], entry["bound_by"] = bound(
+            m["evolve_bytes"], k1_ops(MAP_N, window, events, fallbacks),
+            "float32")
+        entry["device_us"] = m["evolve_device_us_mean_of_3"][layer]
+        entry["evolve_window"] = window
 
     interp_kernels = interp2d(pt, torch, dev, smi)
     interp1d_kernels = interp1d(pt, torch, dev, smi)
+    repairs(pt, torch, dev)
     replay_kernel, log = staged(pt, torch, dev, smi)
-    # K1 runs on two paths: the Driver.cu slice, and the staged solve's f32
-    # stage and discovery passes (with its firing-order log)
-    kernels["launches"] = slice_launches + log["launches"]
-    kernels["launches_by_path"] = {"slice": slice_launches,
-                                   "staged": log["launches"]}
-    kernels["log"] = log
+    # K1 runs on three paths: the Driver.cu slice (every lane), the config-3
+    # map evaluation and the staged solve's f32 stage and discovery passes
+    # (with its firing-order log), both windowed
+    full["launches"] = slice_launches
+    full["launches_by_path"] = {"slice": slice_launches}
+    windowed["launches"] = m["launches"] + log["launches"]
+    windowed["launches_by_path"] = {"map_eval": m["launches"],
+                                    "staged": log["launches"]}
+    windowed["log"] = log
+    kernels = [full, windowed]
 
+    kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel]
+    missing = [k["name"] for k in kernels if k["device_us"] is None]
+    require(not missing, f"no device time measured for {missing}")
     print(smi, flush=True)
-    emit({"kernels": [kernels, *interp_kernels, *interp1d_kernels,
-                      replay_kernel]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

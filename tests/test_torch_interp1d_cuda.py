@@ -79,24 +79,40 @@ def test_lerp1d_kernel_matches_plain(card, n, Q):
 # ------------------------------------------------------------------ K4
 
 K4_CASES = {
-    # 2M uniform queries on 64k nodes: the bench's shape, staged windows
-    "bench_64k": (65536, 2_097_152, 512, -3.0, 3.0),
+    # 2M uniform queries on 64k nodes: the bench's shape, one CTA a batch
+    "bench_64k": (65536, 2_097_152, 512, -3.0, 3.0, "uniform"),
     # out-of-range and extreme queries, padded last batch
-    "pads_and_extremes": (16384, 70001, 16, -3.5, 3.5),
-    # one batch of 1000: each group of 256 sorted queries spans ~16k
-    # nodes, wider than the 8192-node shared-memory window, so the groups
-    # read device memory
-    "span_exceeds_window": (65536, 1000, 1, -3.0, 3.0),
-    # every query in one group
-    "one_group": (65536, 200, 1, 0.5, 0.51),
+    "pads_and_extremes": (16384, 70001, 16, -3.5, 3.5, "uniform"),
+    # one batch of 1000 queries spread over the whole table
+    "one_sparse_batch": (65536, 1000, 1, -3.0, 3.0, "uniform"),
+    # every query in a few cells
+    "one_group": (65536, 200, 1, 0.5, 0.51, "uniform"),
+    # clustered: normal around one node, 1% of the table's width
+    "clustered": (65536, 300_001, 64, -3.0, 3.0, "clustered"),
+    # queries already in ascending order
+    "already_sorted": (4096, 300_001, 64, -3.2, 3.2, "sorted"),
+    # batches above the staged size take the grid-stride body
+    "large_batches": (65536, 100_003, 4, -3.5, 3.5, "uniform"),
+    # more batches than one launch dimension holds (65535)
+    "70000_batches": (1000, 140_001, 70_000, -3.5, 3.5, "uniform"),
 }
+
+
+def k4_queries(card, Q, lo, hi, dist):
+    if dist == "clustered":
+        q = np.random.default_rng(1).normal(lo + 0.37 * (hi - lo),
+                                            0.01 * (hi - lo), Q)
+        q[:len(EXTREME)] = EXTREME
+        return torch.tensor(q, dtype=torch.float32, device=card)
+    q = queries(card, Q, lo, hi)
+    return torch.sort(q).values if dist == "sorted" else q
 
 
 @pytest.mark.parametrize("case", list(K4_CASES))
 def test_lerp1d_sorted_kernel_matches_plain(card, case):
-    n, Q, nb, lo, hi = K4_CASES[case]
+    n, Q, nb, lo, hi, dist = K4_CASES[case]
     fp, x0, inv_dx = sin_table(card, n)
-    q = queries(card, Q, lo, hi)
+    q = k4_queries(card, Q, lo, hi, dist)
     qs, order = i1.sort_batches(q, nb)
     got = launched("lerp1d_sorted", lambda: i1.lerp1d_sorted_cuda(
         qs, order, fp, x0, inv_dx, Q, nb))
@@ -105,14 +121,48 @@ def test_lerp1d_sorted_kernel_matches_plain(card, case):
     same(got, i1.lerp1d_plain(q, fp, x0, inv_dx))
 
 
-def test_lerp1d_routes_large_tables_to_the_sorted_kernel(card):
+@pytest.mark.parametrize("layout", ["global_sort", "two_batches_swapped",
+                                    "global_sort_large_batches"])
+def test_lerp1d_sorted_kernel_takes_any_permutation(card, layout):
+    """Orders that sort_batches does not make: the whole padded query
+    stream sorted at once (every batch holds ids of other batches), or
+    two batches' rows exchanged (the others keep their own ids); in the
+    staged body and, above its batch size, the grid-stride body."""
+    nb = 4 if layout == "global_sort_large_batches" else 16
+    Q = 100_003 if nb == 4 else 70_001
+    fp, x0, inv_dx = sin_table(card, 16384)
+    q = queries(card, Q, -3.5, 3.5)
+    qs, order = i1.sort_batches(q, nb)
+    if layout == "two_batches_swapped":
+        qs, order = (x.view(nb, -1)[[1, 0, *range(2, nb)]].reshape(-1)
+                     for x in (qs, order))
+    else:
+        qs, idx = torch.sort(qs)
+        order = order[idx]
+    got = launched("lerp1d_sorted", lambda: i1.lerp1d_sorted_cuda(
+        qs, order, fp, x0, inv_dx, Q, nb))
+    same(got, i1.lerp1d_sorted_plain(qs, order, fp, x0, inv_dx, Q))
+    same(got, i1.lerp1d_plain(q, fp, x0, inv_dx))
+
+
+def test_lerp1d_binned_with_more_than_65535_batches(card):
+    fp, x0, inv_dx = sin_table(card, 1000)
+    q = queries(card, 140_001, -3.5, 3.5)
+    got = launched("lerp1d_sorted", lambda: pt.lerp1d_binned(
+        q, fp, -3.0, 6.0 / 999, n_batches=70_000))
+    same(got, i1.lerp1d_plain(q, fp, x0, inv_dx))
+
+
+def test_lerp1d_takes_the_direct_kernel_on_large_tables(card):
+    """The JAX package's rule would sort these; on the card K3 wins at
+    every shape (tools/interp1d_route_study.py), with the same values as
+    the sorted kernel."""
     fp, _, _ = sin_table(card, 65536)
     q = queries(card, 200_000, -3.2, 3.2)
-    got = launched("lerp1d_sorted",
-                   lambda: pt.lerp1d(q, fp, -3.0, 6.0 / 65535))
-    small = launched("lerp1d", lambda: pt.lerp1d(q[:1000], fp, -3.0,
-                                                 6.0 / 65535))
-    same(small, got[:1000])
+    got = launched("lerp1d", lambda: pt.lerp1d(q, fp, -3.0, 6.0 / 65535))
+    binned = launched("lerp1d_sorted", lambda: pt.lerp1d_binned(
+        q, fp, -3.0, 6.0 / 65535, n_batches=64))
+    same(got, binned)
 
 
 # ------------------------------------------------------------------ K5
@@ -154,7 +204,8 @@ def test_interp1d_sorted_route_matches_plain(card):
     xp, fp = nonuniform(card, 2048, 0.05, 0.07, seed=14)
     table = pt.make_interp1d(xp, fp)
     q = queries(card, 262150, -1.0, float(xp[-1]) + 1.0)
-    got = launched("interp1d", lambda: table(q))
+    got = launched("interp1d", lambda: table(q, method="sorted"))
+    same(got, launched("interp1d", lambda: table(q)))
     qs, order = i1.sort_batches(q, i1._pow2_batches(q.numel()))
     same(got, i1.interp1d_plain(table, qs, order, q.numel()))
     same(got, i1.interp1d_plain(table, q))

@@ -205,6 +205,26 @@ def test_f64_kernel_matches_plain_and_host_double(card, B, H, W, Q):
                                rtol=0, atol=F64_BAR)
 
 
+def test_more_than_65535_grids(card):
+    """B = 65536 small grids, more than one launch dimension holds: both K7
+    bodies, the device binning and K8, and K6, against the plain
+    versions."""
+    B, H, W, Q = 65536, 6, 9, 5
+    pts, grids = inputs(card, B, H, W, Q)
+    want = ic.gather_plain(pts, grids)
+    for body in ("direct", "staged"):
+        assert max_diff(ic.gather_cuda(pts, grids, body=body), want) <= F32_BAR
+    bins = ic.bin_queries_cuda(pts, H, W)
+    plain_bins = ic.bin_queries(pts, H, W)
+    assert torch.equal(bins.offsets, plain_bins.offsets)
+    assert max_diff(ic.binned_cuda(grids, bins), want) <= F32_BAR
+    assert max_diff(pt.bilinear_batched(pts, grids, method="binned"),
+                    want) <= F32_BAR
+    pts64, grids64 = inputs(card, B, H, W, Q, dtype=torch.float64)
+    assert max_diff(pt.bilinear_batched_f64(pts64, grids64),
+                    ic.f64_plain(pts64, grids64)) <= F64_BAR
+
+
 def test_auto_routes_by_grid_size(card):
     counts = dict(ic.LAUNCHES)
     small = pt.bilinear_batched(*inputs(card, 2, 256, 256, 1000))

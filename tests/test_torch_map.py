@@ -123,6 +123,7 @@ def test_port_never_imports_jax():
             "import armadillocudalinearinterpolation_torch.ops.interp1d_cuda; "
             "import armadillocudalinearinterpolation_torch.model.replay; "
             "import armadillocudalinearinterpolation_torch.model.replay_cuda; "
+            "import armadillocudalinearinterpolation_torch.model.evolve_batched; "
             "import armadillocudalinearinterpolation_torch.solvers.staged; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
