@@ -34,8 +34,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "atorch_evolve_f32": [_P] * 13 + [_I] * 9 + [_D] * 10 + [_P],
     "atorch_evolve_f64": [_P] * 13 + [_I] * 9 + [_D] * 10 + [_P],
-    "atorch_replay_f32": [_P] * 13 + [_I] * 8 + [_D] * 5 + [_P],
-    "atorch_replay_f64": [_P] * 13 + [_I] * 8 + [_D] * 5 + [_P],
+    "atorch_replay_f32": [_P] * 13 + [_I] * 9 + [_D] * 5 + [_P],
+    "atorch_replay_f64": [_P] * 13 + [_I] * 9 + [_D] * 5 + [_P],
     "atorch_bilinear_gather": [_P] * 3 + [_I] * 7 + [_P],
     "atorch_bilinear_binning": [_P] * 5 + [_I] * 8 + [_P],
     "atorch_bilinear_binned": [_P] * 5 + [_I] * 10 + [_P],

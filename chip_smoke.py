@@ -39,7 +39,9 @@ device memory), each against its plain version.  Then the staged Newton to
 ``|F| <= 1e-8`` (``staged``) at BASELINE config 4 (N=4096, R=64, f64, sigma
 0.1, ``evolve_window=512``): the evolve kernel's firing-order log against
 the same kernel on every lane and the plain log, the replay kernel
-(K2) against the plain replay at 64 and 256 rows, the replay against the
+(K2) against the plain replay at 64 and 256 rows with the threads a CTA
+each took, K2's device time and µs per event there and its registers
+(``tools/kernel_resources.py``), the replay against the
 direct fp64 evolve, ``newton_solve_staged`` from the ``Driver.cu`` guess
 (cold) and from the guess + 1e-3 (warm) with the residual recomputed,
 iterations per stage, launches, the warm solve on every lane beside it,
@@ -58,6 +60,7 @@ prints no result.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import statistics
@@ -139,16 +142,22 @@ REPLAY_SRC = f"{PKG}/csrc/replay.cu"
 # Peaks of one H100 SXM (NVIDIA's data sheet): memory, and float32 and
 # float64 outside the tensor cores, in bytes/s and operations/s.
 PEAK = {"bytes": 3.35e12, "float32": 67e12, "float64": 34e12}
-# Operations per lane and event, counted from csrc/events.cuh, evolve.cu
-# and replay.cu with each exp, log or pow as one operation and the
-# event-time Newton steps of firing lanes left out, so the bound is a lower
-# bound.  K1, on each lane it evaluates (every lane, or the window's and
-# every lane of an event that fell back): fire decision 14, first residual
-# and its test 23, argmin 2; on every lane: advance 13, kick-table index 3,
-# synapse 6; on each lane outside the window: the certificate's ratio and
-# minimum 9.  K2: decay 3, advance 10, kick index 3, synapse 3.
+# Operations per lane and event.  K1, counted from csrc/events.cuh and
+# evolve.cu with each exp, log or pow as one operation and the event-time
+# Newton steps of firing lanes left out, so the bound is a lower bound; on
+# each lane it evaluates (every lane, or the window's and every lane of an
+# event that fell back): fire decision 14, first residual and its test 23,
+# argmin 2; on every lane: advance 13, kick-table index 3, synapse 6; on
+# each lane outside the window: the certificate's ratio and minimum 9.
 K1_EVAL_OPS, K1_ADVANCE_OPS, K1_CERT_OPS = 39, 22, 9
-K2_OPS_PER_LANE_EVENT = 19
+# K2: the fp64-pipe instructions of its per-lane body (replay.cu's advance
+# and kick_weight: one exp, one division, the advance and the kick; exp and
+# division are instruction sequences on this card), counted in the SASS
+# that cuobjdump shows of the package's build for sm_90a by
+# tools/kernel_resources.py on an H100 machine: 21 DFMA (two operations
+# each), 7 DMUL, 8 DADD, 1 MUFU.RCP64H, 1 DSETP.  The root-find of each
+# event (one lane) is left out.
+K2_OPS_PER_LANE_EVENT = 59
 # repairs: more grids than one launch dimension holds, more 1-D batches,
 # and N above one CTA's shared memory (f64 evolve: 8273, replay: 8297)
 REPAIR_GRIDS = (65536, 6, 9, 5)
@@ -1486,8 +1495,13 @@ def staged(pt, torch, dev, smi: str):
             f"staged: K1 log residual diff {log_res}")
 
     # K2 against the plain replay: the guess (64 rows) and the forward
-    # stencil around it (256 rows), on K1's log
+    # stencil around it (256 rows), on K1's log; the threads each shape
+    # takes, K2's own device time and its µs per event (over the mean
+    # logged events per row)
     sched, n_ev = sk, rk.n_events
+    props = torch.cuda.get_device_properties(dev)
+    optin = evolve_cuda.shared_optin_bytes(dev)
+    events_per_row = float(torch.clamp(n_ev, max=E).double().mean())
     k2 = {}
     for name, P in (("64_rows", 1), ("256_rows", 4)):
         args = (cfg, sched, n_ev, v0[:P], s0[:P], beta, ii[0])
@@ -1497,9 +1511,19 @@ def staged(pt, torch, dev, smi: str):
         ints = bool(torch.equal(identical_rows(rep_k, rep_p),
                                 torch.ones_like(rep_k.accept)))
         d = time_diff(rep_k, rep_p, torch.ones_like(rep_k.accept))
+        _, per_kernel = device_us(
+            lambda: replay_cuda.replay_events_cuda(*args), torch, n=3)
+        us = next((v for k, v in per_kernel.items() if "replay_kernel" in k),
+                  None)
         k2[name] = {"identical_ints": ints, "max_time_diff": d,
                     "kernel_ms_first_call": k_ms, "plain_ms": p_ms,
-                    "accepted": int(rep_k.accept.sum())}
+                    "accepted": int(rep_k.accept.sum()),
+                    "threads": replay_cuda.replay_layout(
+                        N, cfg.n_spikes, P * R, props.multi_processor_count,
+                        optin, props.shared_memory_per_multiprocessor),
+                    "device_us": us, "events_per_row_mean": events_per_row,
+                    "us_per_event": None if us is None
+                    else us / events_per_row}
         require(ints, f"staged: K2 {name}: indices or accept differ")
         require(d <= bars["k2_vs_plain_time"], f"staged: K2 {name}: {d}")
         if P == 1:
@@ -1630,8 +1654,11 @@ def staged(pt, torch, dev, smi: str):
         "max_abs_err": max(v["max_time_diff"] for v in k2.values()),
         "ms": k2_ms, "plain_ms": plain64_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None,
-        "device_us": device_us(lambda: replay_cuda.replay_events_cuda(
-            *args64), torch, n=3)[0]}
+        "device_us": k2["64_rows"]["device_us"],
+        "k2_device_us": {k: v["device_us"] for k, v in k2.items()},
+        "us_per_event": {k: v["us_per_event"] for k, v in k2.items()},
+        "threads": {k: v["threads"] for k, v in k2.items()},
+        "registers": replay_registers()}
     log_info = {"launches": solves["cold"]["launches"]["evolve_kernel"],
                 "identical_share": log_share,
                 "windowed_vs_full_lane_identical_rows": full_share,
@@ -1639,6 +1666,22 @@ def staged(pt, torch, dev, smi: str):
                 "full_lane_ms_config4_f32": full_log_ms,
                 "plain_ms_config4_f32": plain_log_ms}
     return replay_entry, log_info
+
+
+def replay_registers() -> dict:
+    """Registers and spill bytes of each K2 variant, as
+    ``tools/kernel_resources.py`` reads them from ``nvcc -Xptxas -v`` with
+    the package's flags."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_resources", ROOT / "tools" / "kernel_resources.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = {}
+    for name, res in tool.source_resources(ROOT / REPLAY_SRC).items():
+        if "replay_kernel<" in name:
+            start = name.index("replay_kernel<")
+            out[name[start:name.index(">", start) + 1]] = res
+    return out
 
 
 def main() -> int:

@@ -216,7 +216,7 @@ def test_row_shared_bytes_counts_every_array():
                 3 * N * item[dtype] + table + small
     # the replay's 112 KB at N=4096 (csrc/replay.cu)
     assert evolve_cuda.row_shared_bytes(4096, 3, torch.float32,
-                                        "replay") == 114_808
+                                        "replay") == 114_804
     # the card tests' large-N rows take device memory
     assert not evolve_cuda.row_fits_shared(10240, 3, torch.float64, "evolve")
     assert not evolve_cuda.row_fits_shared(8448, 3, torch.float64, "replay")
