@@ -13,7 +13,10 @@ are the first slice ported; batched 2-D bilinear interpolation
 lerp, ``csrc/interp1d.cu``) is the third; the staged Newton to
 ``|F| <= 1e-8`` (the evolve kernel's firing-order log, the fp64 schedule
 replay kernel ``csrc/replay.cu``, the frozen-schedule map and
-``newton_solve_staged``) is the fourth.  This package never imports JAX.
+``newton_solve_staged``) is the fourth; the ``Driver.cu`` program's entry
+point (``cli/driver.py``: the continuation sweep with stability,
+checkpoint/resume in the JAX package's format and stage dumps, ``utils/``)
+is the fifth.  This package never imports JAX.
 """
 
 from .config import ModelConfig, MapParams, NewtonConfig
@@ -45,6 +48,8 @@ from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
 from .solvers.staged import newton_solve_frozen, newton_solve_staged
 from .ops.interp_cuda import bilinear_batched, bilinear_batched_f64
 from .ops.interp1d_cuda import lerp1d, lerp1d_binned, make_interp1d
+from .utils.checkpoint import ContinuationCheckpoint, ContinuationStep
+from .utils.debug import compare_dumps, dump_map_stages
 from .analysis.stability import (
     ProblemType,
     compute_eigenvalues,
@@ -102,4 +107,8 @@ __all__ = [
     "lerp1d",
     "lerp1d_binned",
     "make_interp1d",
+    "ContinuationCheckpoint",
+    "ContinuationStep",
+    "dump_map_stages",
+    "compare_dumps",
 ]

@@ -1,0 +1,451 @@
+"""Continuation driver: the reference application as a CLI, on the card.
+
+Reference: ``Driver.cu:11-126``: set up the problem at ``beta = 13.0589``,
+smoke-test ``ComputeF``, Newton-solve from the known initial guess, then (the
+commented-out production loop, ``Driver.cu:86-114``) sweep ``beta`` in steps
+of 0.1, checking stability at every converged point.  The port of the JAX
+package's ``cli/driver.py``: every knob is a flag, the sweep checkpoints each
+step (:mod:`..utils.checkpoint`, the JAX package's format) and resumes.
+
+The CLI runs on the CUDA card; ``--cpu`` runs it on the CPU (the plain
+PyTorch versions of the kernels).  Without ``--cpu`` and without a card it
+exits 2: it never carries on on the CPU.
+
+Reseeding (the reference's ``PostProcess -> SetNewSeed``,
+``EventDrivenMap.cu:343-346``): step ``i`` of a sweep draws its ``(R, N)``
+heterogeneity from a ``torch.Generator`` on the run's device seeded with
+:func:`step_seed` ``(seed, i)``, and that one draw serves every solve of the
+step (the retry too).  A resumed sweep therefore draws what an
+uninterrupted one drew without replaying earlier draws; the JAX package
+instead splits its key once per completed step and fast-forwards the splits
+on resume.  A resumed sweep also restores the secant predictor's pair from
+the checkpoint, so its steps repeat the uninterrupted sweep's.
+
+Run:  python -m armadillocudalinearinterpolation_torch.cli.driver --help
+
+The JAX package's walkers (``--arclength``, ``--enumerate-branches``,
+``--track-boundary``, ``--track-fold``), ``--shard`` and the ``exact``
+Jacobian modes are not ported yet: the parser has no such flags, and the
+``exact`` modes exit 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .. import (MapParams, ModelConfig, NewtonConfig, ProblemType,
+                compute_eigenvalues, count_unstable, event_driven_map,
+                make_residual_fn, newton_solve, sample_beta)
+from ..solvers.staged import (FROZEN_MODES, newton_solve_frozen,
+                              newton_solve_staged)
+from ..utils.checkpoint import ContinuationCheckpoint, ContinuationStep
+from ..utils.debug import dump_map_stages
+from ..utils.profiling import trace
+
+EXACT_MESSAGE = ("error: exact Jacobians (fd_mode 'exact') are not ported "
+                 "yet (ROADMAP.md, Queue 1 item 9); use --fd-mode forward, "
+                 "central, frozen or frozen-fwd")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="edmap-continue",
+        description="Equation-free event-driven-map Newton continuation "
+                    "(PyTorch/CUDA)")
+    # model (reference parameters.hpp + EventDrivenMap sizes)
+    p.add_argument("--neurons", type=int, default=512,
+                   help="neurons per realisation (reference: 1024/512)")
+    p.add_argument("--realisations", type=int, default=64,
+                   help="Monte-Carlo realisations (reference: 1000)")
+    p.add_argument("--spikes", type=int, default=3)
+    p.add_argument("--beta", type=float, default=13.0589,
+                   help="initial mean synaptic rate (Driver.cu:16)")
+    p.add_argument("--sigma", type=float, default=0.0,
+                   help="heterogeneity std-dev (SetParameterStdDev)")
+    p.add_argument("--horizon", type=float, default=5.0)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the kernels' plain PyTorch "
+                        "versions); without it the CLI needs a CUDA card")
+    # initial guess (Driver.cu:24)
+    p.add_argument("--guess", type=float, nargs="+",
+                   default=[0.3310, 0.6914, 1.3557])
+    # newton (Driver.cu:28-37)
+    p.add_argument("--tol", type=float, default=1e-4)
+    p.add_argument("--max-iter", type=int, default=10)
+    p.add_argument("--fd-eps", type=float, default=1e-2)
+    p.add_argument("--fd-mode",
+                   choices=["forward", "central", "exact", "frozen",
+                            "frozen-fwd"],
+                   default="forward",
+                   help="Jacobian mode: forward or central FD on the map; "
+                        "frozen/frozen-fwd = fused residual + frozen-"
+                        "schedule FD on the fp64 replay map "
+                        "(solvers/staged.py newton_solve_frozen); exact is "
+                        "not ported yet and exits 2")
+    p.add_argument("--evolve-backend",
+                   choices=["auto", "cuda", "torch", "replay"],
+                   default="auto",
+                   help="event-loop backend: auto = the CUDA kernel on the "
+                        "card, the plain PyTorch evolve on the CPU; cuda = "
+                        "the kernel (card only); torch = the plain evolve; "
+                        "replay = f32 discovery + fp64 schedule replay")
+    p.add_argument("--max-events", type=int, default=None,
+                   help="event-log bound of the schedule replay "
+                        "(ModelConfig.max_events; ~1.5x the expected event "
+                        "count, e.g. 1024 at 512 neurons, 4096 at 4096)")
+    p.add_argument("--root-tol", type=float, default=None,
+                   help="event-time root-find tolerance (ModelConfig."
+                        "root_tol; default 1e-6 = reference parameters.hpp"
+                        "). --staged tightens it to 1e-4x --tol by itself")
+    p.add_argument("--evolve-window", type=int, default=0,
+                   help="certified root-find window in lanes (multiple of "
+                        "128; 0 = all lanes); its results equal every "
+                        "lane's")
+    p.add_argument("--staged", action="store_true",
+                   help="solve each sweep step with the staged hybrid-"
+                        "precision recipe (f32 Newton -> frozen-schedule "
+                        "Newton on the fp64 replay -> frozen-Jacobian "
+                        "polish; solvers/staged.py); reaches --tol 1e-8; "
+                        "requires --dtype float64")
+    p.add_argument("--stage2-fd",
+                   choices=["frozen-fwd", "frozen", "exact", "central"],
+                   default=None,
+                   help="--staged accurate-stage Jacobian mode: frozen-fwd "
+                        "(the default) = one-sided frozen-schedule FD, one "
+                        "(n+1)-point replay per iteration; frozen = the "
+                        "central (2n+1)-point stencil, the default under "
+                        "--stability, which eigendecomposes the exported "
+                        "Jacobian; central = plain central FD on the full "
+                        "map (the default with --evolve-backend cuda or "
+                        "torch); exact is not ported yet and exits 2")
+    p.add_argument("--damping", type=float, default=1.0)
+    p.add_argument("--quiet", action="store_true")
+    # continuation (Driver.cu:86-114)
+    p.add_argument("--steps", type=int, default=1,
+                   help="continuation steps (reference loop: 100)")
+    p.add_argument("--beta-step", type=float, default=0.1)
+    p.add_argument("--predict", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="secant predictor for the sweep warm start "
+                        "(extrapolate the guess from the two previous "
+                        "converged solutions); --no-predict restores the "
+                        "reference's plain previous-solution warm start "
+                        "(Driver.cu:107-109)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the per-step draws (see step_seed)")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="directory for per-step checkpoint (resumable)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume a sweep from --checkpoint")
+    p.add_argument("--debug-dump", type=str, default=None,
+                   help="dump every map stage to this directory (.npy)")
+    p.add_argument("--profile", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "this directory (trace.json)")
+    p.add_argument("--stability", action="store_true",
+                   help="eigenvalue analysis at each converged point")
+    return p
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of sweep step ``step``: ``seed * 2**32 + step``,
+    modulo ``2**64`` (distinct for every step below ``2**32``)."""
+    return (seed * (1 << 32) + step) % (1 << 64)
+
+
+def step_draws(cfg, seed: int, device) -> Callable:
+    """The sweep's default draws: ``draw(step, params)`` returns the
+    ``(R, N)`` draw of step ``step`` at ``params``, from a
+    ``torch.Generator`` on ``device`` seeded with ``step_seed(seed,
+    step)``."""
+    device = torch.device(device)
+
+    def draw(step: int, params) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed(
+            step_seed(seed, step))
+        return sample_beta(cfg, params, gen, device=device)
+    return draw
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def predicted_retry_needed(res) -> bool:
+    """Whether a secant-PREDICTED sweep step must be retried from the plain
+    reference warm start (``Driver.cu:107-109``).
+
+    Any failure qualifies: hard (non-finite iterate: damping-1 Newton from
+    an off-branch extrapolation can go straight to NaN, which the sweep's
+    non-finite hard-stop would misread as the branch end) or soft (finite
+    non-convergence: recording the extrapolated FAILED iterate would seed
+    the next step's warm start and compound the miss, diverging from the
+    reference loop's behavior).  A genuine branch end fails the retry too,
+    so nothing real is masked: the step just costs one extra solve, and
+    only on the first failure after a converged pair (a failed step resets
+    the predictor)."""
+    return not (bool(res.converged) and np.isfinite(_host(res.solution)).all())
+
+
+def main(argv=None, *, draw: Optional[Callable] = None) -> int:
+    """Run the CLI on ``argv``; returns the exit code.
+
+    ``draw(step, params)``, if given, replaces the per-step draws of
+    :func:`step_draws` (the parity tests pass the JAX package's draws).
+    """
+    args = build_parser().parse_args(argv)
+    if not args.cpu and not torch.cuda.is_available():
+        print("error: no CUDA device is available; the CLI runs on the "
+              "card (pass --cpu to run on the CPU)", file=sys.stderr)
+        return 2
+    if args.profile:
+        with trace(args.profile):
+            rc = _run(args, draw)
+        print(f"profiler trace written to {args.profile}/")
+        return rc
+    return _run(args, draw)
+
+
+def _error(msg: str) -> int:
+    print(msg, file=sys.stderr)
+    return 2
+
+
+def _run(args, draw: Optional[Callable] = None) -> int:
+    if args.max_events is not None and args.max_events <= 0:
+        raise SystemExit(f"--max-events must be positive, "
+                         f"got {args.max_events}")
+    if args.staged and args.dtype != "float64":
+        return _error("error: --staged solves in the accurate dtype; pass "
+                      "--dtype float64")
+    if "exact" in (args.fd_mode, args.stage2_fd):
+        return _error(EXACT_MESSAGE)
+    if args.cpu and args.evolve_backend == "cuda":
+        return _error("error: --evolve-backend cuda runs the kernel on the "
+                      "card; drop --cpu (or use auto or torch)")
+    frozen = args.fd_mode in FROZEN_MODES
+    direct = args.evolve_backend in ("cuda", "torch")
+    frozen_solve = (args.stage2_fd in FROZEN_MODES if args.staged
+                    else frozen)
+    if frozen_solve and direct:
+        # the frozen solver runs the fp64 replay unconditionally, so an
+        # explicit direct backend would be silently ignored and the sweep
+        # would converge on a residual it never evaluated
+        return _error(
+            "error: the frozen modes solve on the fp64 replay map; they "
+            f"cannot honor --evolve-backend {args.evolve_backend}. Drop "
+            "the backend flag (or use a forward/central mode with it).")
+
+    dev = torch.device("cpu" if args.cpu else "cuda")
+    cfg = ModelConfig(n_neurons=args.neurons, n_real=args.realisations,
+                      n_spikes=args.spikes, t_horizon=args.horizon,
+                      evolve_window=args.evolve_window, dtype=args.dtype,
+                      **({"max_events": args.max_events}
+                         if args.max_events is not None else {}),
+                      **({"root_tol": args.root_tol}
+                         if args.root_tol is not None else {}))
+    ncfg = NewtonConfig(tolerance=args.tol, max_iterations=args.max_iter,
+                        fd_epsilon=args.fd_eps, damping=args.damping,
+                        print_output=not args.quiet, fd_mode=args.fd_mode)
+    if len(args.guess) != args.spikes:
+        return _error(f"error: --guess needs {args.spikes} values")
+    Z = torch.tensor(args.guess, dtype=cfg.torch_dtype, device=dev)
+    beta = args.beta
+    if draw is None:
+        draw = step_draws(cfg, args.seed, dev)
+
+    ckpt = ContinuationCheckpoint(args.checkpoint) if args.checkpoint else None
+    start = 0
+    # Secant predictor state (beyond the reference's plain warm start,
+    # Driver.cu:107-109): the pair is strictly TWO CONSECUTIVE CONVERGED
+    # SOLUTIONS, never the caller's initial guess (a guess->solution
+    # "secant" is a Newton correction, not a branch tangent: at N=512 R=4
+    # f64 it extrapolated step 1 into the coexisting fast family's basin),
+    # and a failed step resets it.  When the pair is live, Z itself is the
+    # newer converged solution, so one "two steps back" value suffices.
+    Z_conv_prev = None   # converged solution two steps back
+    Z_is_conv = False    # current Z is a converged solution (not a guess)
+    if args.resume:
+        if ckpt is None:
+            return _error("error: --resume requires --checkpoint")
+        done = ckpt.load_all()
+        if done:
+            last = done[-1]
+            start = last.index + 1
+            beta = last.beta + args.beta_step
+            Z = torch.tensor(last.solution, dtype=cfg.torch_dtype,
+                             device=dev)
+            # the predictor's state after the last step, as the
+            # uninterrupted loop left it
+            Z_is_conv = bool(last.converged)
+            if (Z_is_conv and len(done) > 1 and done[-2].converged
+                    and done[-2].index == last.index - 1):
+                Z_conv_prev = torch.tensor(done[-2].solution,
+                                           dtype=cfg.torch_dtype, device=dev)
+            print(f"resuming at step {start} (beta={beta:.4f})")
+
+    if args.staged:
+        # the staged recipe carries its own stage budgets/damping/FD setup
+        # (solvers/staged.py); flag knobs that would otherwise silently
+        # not take effect
+        parser = build_parser()
+        ignored = [f for f in ("max_iter", "fd_eps", "fd_mode", "damping")
+                   if getattr(args, f) != parser.get_default(f)]
+        if ignored:
+            flags = ", ".join("--" + f.replace("_", "-") for f in ignored)
+            print(f"warning: {flags} ignored with --staged (the staged "
+                  "recipe uses its own stage configs; see "
+                  "solvers/staged.py)", file=sys.stderr)
+    elif args.stage2_fd is not None:
+        print("warning: --stage2-fd only takes effect with --staged",
+              file=sys.stderr)
+    if (not args.staged and args.fd_mode in ("forward", "central")
+            and args.fd_eps >= cfg.dx):
+        # (the frozen modes are exempt: they difference the frozen-outcome
+        # smooth piece, with no seeding staircase in range, and their
+        # radius is clamped)
+        # The map's spike-index seeding quantises with the grid, so an FD
+        # stencil wider than one cell straddles O(dx) staircase steps and
+        # can poison the Jacobian (observed: divergence at N=1024 with the
+        # reference's default eps=1e-2).  The reference never hits this
+        # because its grid (N=512) is coarser than its epsilon.
+        print(f"warning: --fd-eps {args.fd_eps:g} >= grid spacing "
+              f"dx={cfg.dx:.2e}; the FD Jacobian may straddle the map's "
+              "seeding staircase. Consider --fd-eps below dx/4 or "
+              "--fd-mode central.", file=sys.stderr)
+
+    # Smoke test, as in Driver.cu:58-59.  Under --staged and the frozen
+    # modes the accurate backend is the replay ("auto" resolves there in
+    # the library), so probe THAT.
+    smoke_backend = args.evolve_backend
+    if (args.staged or frozen) and smoke_backend == "auto":
+        smoke_backend = "replay"
+    params = MapParams.create(beta, args.sigma, dtype=args.dtype, device=dev)
+    t0 = time.perf_counter()
+    f0 = event_driven_map(cfg, params, draw(start, params), Z,
+                          evolve_backend=smoke_backend)
+    print(f"ComputeF smoke test: |f| = {float(torch.linalg.vector_norm(f0)):.6e} "
+          f"({time.perf_counter() - t0:.2f}s incl. kernel build)")
+
+    if args.debug_dump:
+        dump_map_stages(cfg, params, draw(start, params), Z, args.debug_dump)
+        print(f"stage dumps written to {args.debug_dump}/")
+
+    if args.staged:
+        # An unspecified --stage2-fd resolves to the library default
+        # (frozen-fwd on the replay; central FD on a direct evolve), EXCEPT
+        # under --stability on the replay: that eigendecomposes the
+        # exported stage-2 Jacobian, where the central frozen stencil's
+        # ~3e-7 accuracy (against frozen-fwd's ~3e-6) is the better grade
+        # near a stability boundary.
+        stage2_fd = args.stage2_fd
+        if stage2_fd is None and not direct:
+            stage2_fd = "frozen" if args.stability else "frozen-fwd"
+        # None defers to the library's backend-aware default; an EXPLICIT
+        # flag always builds a config
+        stage2_ncfg = None
+        if args.stage2_fd is not None or stage2_fd == "frozen":
+            stage2_ncfg = NewtonConfig(
+                tolerance=5.0 * args.tol, max_iterations=6,
+                fd_mode=stage2_fd,
+                fd_epsilon=1e-5 if stage2_fd == "frozen" else 1e-6)
+
+        def solve(p, b, z):
+            return newton_solve_staged(cfg, p, z, beta=b,
+                                       tolerance=args.tol,
+                                       stage2_ncfg=stage2_ncfg,
+                                       evolve_backend=args.evolve_backend)
+    elif frozen:
+        # fused frozen-outcome solves on the fp64 replay map: one batched
+        # stencil replay per iteration, host-driven
+        def solve(p, b, z):
+            return newton_solve_frozen(cfg, p, b, z, ncfg)
+    else:
+        def solve(p, b, z):
+            F = make_residual_fn(cfg, p, 0, device=dev, beta=b,
+                                 evolve_backend=args.evolve_backend)
+            return newton_solve(F, z, ncfg)
+
+    # (bench.py's sweep deliberately differs on FAILED steps: it retries
+    # from the last converged iterate under one draw, while this loop
+    # follows the reference and warm-starts from whatever the failed solve
+    # returned, and reseeds)
+    for i in range(start, start + args.steps):
+        params = MapParams.create(beta, args.sigma, dtype=args.dtype,
+                                  device=dev)
+        b = draw(i, params)          # one draw serves every solve of step i
+        predicted = args.predict and Z_conv_prev is not None
+        guess = Z + (Z - Z_conv_prev) if predicted else Z
+        res = solve(params, b, guess)
+        if predicted and predicted_retry_needed(res):
+            how = ("diverged" if not np.isfinite(_host(res.solution)).all()
+                   else "did not converge")
+            print(f"step {i}: predicted guess {how}; retrying with the "
+                  "plain warm start")
+            res = solve(params, b, Z)
+        sol = _host(res.solution)
+        ok = bool(res.converged)
+        print(f"step {i}: beta={beta:.4f} converged={ok} "
+              f"iters={int(res.iterations)} |r|={float(res.residual_norm):.3e} "
+              f"Z={np.array2string(sol, precision=5)}")
+        if not np.isfinite(sol).all():
+            # The branch has ended (no accepted realisations / diverged
+            # solve).  Stop cleanly; the checkpoint holds every prior step.
+            print(f"step {i}: solution is non-finite — stopping the sweep "
+                  f"(branch end or solver failure at beta={beta:.4f})")
+            return 1
+
+        n_unstable = None
+        eigenvalues = None
+        if args.stability:
+            # A 0-iteration GENERIC solve exports the identity placeholder,
+            # not a real Jacobian: fall back to finite differences then.
+            # The staged and frozen solvers always export a real one, so
+            # theirs is used unconditionally (the FD fallback at --fd-eps
+            # would sit in the seeding-staircase regime they avoid).
+            exported_real = (int(res.iterations) > 0 or args.staged
+                             or frozen)
+            ev = compute_eigenvalues(
+                make_residual_fn(cfg, params, 0, device=dev, beta=b,
+                                 evolve_backend=args.evolve_backend),
+                res.solution, ProblemType.EQUATION_FREE,
+                jacobian=res.jacobian if exported_real else None,
+                epsilon=args.fd_eps)
+            eigenvalues = np.asarray(ev)
+            n_unstable = int(count_unstable(ev, ProblemType.EQUATION_FREE))
+            verdict = "unstable" if n_unstable else "stable"
+            print(f"  eigenvalues: {np.array2string(eigenvalues, precision=4)}"
+                  f" -> {verdict} ({n_unstable} unstable)")
+
+        if ckpt is not None:
+            ckpt.save(ContinuationStep(
+                index=i, beta=beta, solution=sol,
+                residual_norm=float(res.residual_norm), converged=ok,
+                n_unstable=n_unstable, eigenvalues=eigenvalues))
+
+        # Prepare the next step (Driver.cu:107-109).  Z updates
+        # unconditionally like the reference loop; the predictor pair only
+        # extends across consecutive converged steps.
+        beta += args.beta_step
+        if ok:
+            Z_conv_prev = Z if Z_is_conv else None
+            Z_is_conv = True
+        else:
+            Z_conv_prev = None
+            Z_is_conv = False
+        Z = res.solution
+
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -47,7 +47,20 @@ direct fp64 evolve, ``newton_solve_staged`` from the ``Driver.cu`` guess
 iterations per stage, launches, the warm solve on every lane beside it,
 one accurate map evaluation split into
 discovery and replay, K2's device time and the card's idle share by
-``torch.profiler``.  Every ``kernels`` entry carries its bound (bytes or
+``torch.profiler``.  Then BASELINE config 5 (``sweep``, the JAX bench's
+``sweep_100pt`` and ``sweep_plain``): K1 against its plain windowed version
+at the sweep's shapes, 100 steps of ``beta += 0.1`` at N=512, R=1024, f32,
+sigma 0.1 with the window of 128 lanes, with the secant predictor and
+without, through ``make_residual_fn`` -> ``newton_solve`` and a trailing
+batch of spectra: s/step, converged steps, the first failure after a
+converged step, unstable counts, iterations, map evaluations, K1 launches,
+rows and window fallbacks, and one warm step split into K1, the lift and
+the rest with the card's idle share.  Then the port's CLI (``cli``,
+``cli.driver.main``) on the card: config 5's shapes with ``--stability``
+and a checkpoint for 3 steps, ``--resume`` for 1 (equal to an
+uninterrupted 4-step run's step 3) at the slice's FD step of 3e-4 (at
+config 5's 1e-2 the CLI stops on a non-finite step 0, recorded beside),
+and ``--staged --dtype float64`` at config 4 for 2 steps.  Every ``kernels`` entry carries its bound (bytes or
 operations over the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (``library_ms``).  Each
 phase prints one JSON object; any failed check raises and the script exits
@@ -60,12 +73,15 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -139,6 +155,22 @@ STAGED_BARS = {"k2_vs_plain_time": 1e-12, "replay_vs_direct_time": 1e-10,
                "replay_vs_direct_residual": 1e-5, "log_identical_rows": 0.95,
                "log_residual": 2e-5}
 REPLAY_SRC = f"{PKG}/csrc/replay.cu"
+# sweep: BASELINE config 5 (bench.py::bench_sweep_100pt, bench.py:718-720):
+# N=512, R=1024, f32, sigma 0.1, the certified window of 128 lanes, Newton
+# to 1e-4 in at most 10 iterations with forward FD at the Driver.cu step of
+# 1e-2 (which does not converge from the Driver.cu guess, in the JAX
+# package either: the bench records n_conv and first_fail_beta), 100 steps
+# of beta += 0.1 from 13.0589.  z_2 >= 2 marks the coexisting fast wave
+# family (tests/test_cli_and_utils.py:221); from the Driver.cu guess the
+# sweep converges first on it, so the guard asks that the converged
+# solutions of both sweeps share one family (no hop by either warm start).
+CONFIG5 = {"n_neurons": 512, "n_real": 1024, "dtype": "float32",
+           "evolve_window": 128}
+SWEEP_NEWTON = {"tolerance": 1e-4, "max_iterations": 10, "fd_epsilon": 1e-2}
+SWEEP_STEPS, SWEEP_BETA_STEP, SWEEP_FAST_FAMILY_Z2 = 100, 0.1, 2.0
+# cli: the resumed step against the uninterrupted run's; one draw a step
+# and the restored predictor make them the same computation
+CLI_RESUME_BAR = 1e-6
 # Peaks of one H100 SXM (NVIDIA's data sheet): memory, and float32 and
 # float64 outside the tensor cores, in bytes/s and operations/s.
 PEAK = {"bytes": 3.35e12, "float32": 67e12, "float64": 34e12}
@@ -1668,6 +1700,365 @@ def staged(pt, torch, dev, smi: str):
     return replay_entry, log_info
 
 
+def sweep_solver(pt, dev, cfg, ncfg, counters):
+    """``solve(beta, z0)``: one config-5 step through the public API, the
+    map closed over the seed-0 draw at that beta (one noise draw for the
+    whole sweep, as ``bench.py`` keys every step with ``PRNGKey(0)``);
+    ``counters["evaluations"]`` counts the map evaluations."""
+    def solve(beta_val, z0):
+        params = pt.MapParams.create(beta_val, SIGMA, dtype=cfg.dtype,
+                                     device=dev)
+        F = pt.make_residual_fn(cfg, params, 0, device=dev)
+
+        def counted(Z):
+            counters["evaluations"] += 1
+            return F(Z)
+        return pt.newton_solve(counted, z0, ncfg)
+    return solve
+
+
+def count_fallbacks(torch, emap):
+    """Replace the map's K1 wrapper with one that passes each launch a
+    fallbacks tensor (every row's count of windowed events that fell back
+    to every lane) and keeps it with the rows' event counts.  Returns
+    ``(log, restore)``; ``log`` holds one ``(fallbacks, n_events)`` pair of
+    ``(P * R,)`` int32 device tensors per launch."""
+    real = emap.evolve_ensemble_cuda
+    log = []
+
+    def counted(cfg, v0, s0, beta, init_ind, record_schedule=0):
+        fb = torch.zeros(v0.shape[0] * beta.shape[0], dtype=torch.int32,
+                         device=v0.device)
+        out = real(cfg, v0, s0, beta, init_ind, record_schedule,
+                   fallbacks=fb)
+        log.append((fb, (out[0] if record_schedule else out).n_events))
+        return out
+
+    emap.evolve_ensemble_cuda = counted
+
+    def restore():
+        emap.evolve_ensemble_cuda = real
+    return log, restore
+
+
+def fallback_stats(torch, log) -> dict:
+    """K1's rows, events and window fallbacks over the launches of
+    ``log``: totals, the share of row events that fell back, the most in
+    one launch and in one row."""
+    fb = torch.stack([f.sum() for f, _ in log]).cpu()
+    events = int(torch.stack([e.sum() for _, e in log]).sum())
+    return {"k1_rows": sum(f.numel() for f, _ in log),
+            "k1_events": events, "k1_fallbacks_total": int(fb.sum()),
+            "k1_fallback_share": int(fb.sum()) / max(events, 1),
+            "k1_fallbacks_most_in_one_launch": int(fb.max()),
+            "k1_launches_with_fallbacks": int((fb > 0).sum()),
+            "k1_fallbacks_most_in_one_row": max(int(f.max())
+                                                for f, _ in log)}
+
+
+def run_sweep(pt, torch, dev, solve, predict: bool):
+    """``bench.py::bench_sweep_100pt`` on the port: 100 steps of beta +=
+    0.1 from 13.0589, the secant predictor from two consecutive converged
+    solutions (``predict``), one host readback a step (the solution; the
+    solver's converged flag is already on the host), the Jacobians kept
+    on the card and the spectra in one trailing host batch.  As in
+    ``bench.py`` (and unlike the CLI, which follows ``Driver.cu``), a
+    failed step keeps the last converged iterate as the next warm start."""
+    z = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
+    z_prev, z_is_conv = None, False
+    beta_val, n_conv, first_fail_beta, iterations = BETA, 0, None, 0
+    jacs, conv_flags, solutions = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SWEEP_STEPS):
+        guess = z + (z - z_prev) if (predict and z_prev is not None) else z
+        res = solve(beta_val, guess)
+        sol = res.solution.cpu()                # the one readback a step
+        ok = bool(res.converged) and bool(torch.isfinite(sol).all())
+        jacs.append(res.jacobian)
+        conv_flags.append(ok)
+        iterations += res.iterations
+        if ok:
+            z_prev = z if z_is_conv else None
+            z, z_is_conv = res.solution, True
+            n_conv += 1
+            solutions.append((round(beta_val, 4), sol.tolist()))
+        else:
+            # the branch end: the first failure AFTER a converged step
+            if first_fail_beta is None and n_conv > 0:
+                first_fail_beta = round(beta_val, 4)
+            z_prev, z_is_conv = None, False
+        beta_val += SWEEP_BETA_STEP
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    unstable = []
+    for j in torch.stack(jacs).cpu():
+        if not bool(torch.isfinite(j).all()):
+            unstable.append(-1)       # non-finite Jacobian past the branch end
+            continue
+        ev = pt.compute_eigenvalues(None, None, pt.ProblemType.EQUATION_FREE,
+                                    jacobian=j)
+        unstable.append(pt.count_unstable(ev, pt.ProblemType.EQUATION_FREE))
+    t_spectra = time.perf_counter() - t0
+    return {"predict": predict,
+            "s_per_step": (t_solve + t_spectra) / SWEEP_STEPS,
+            "solve_s_per_step": t_solve / SWEEP_STEPS,
+            "spectra_s": t_spectra, "n_conv": n_conv,
+            "first_fail_beta": first_fail_beta,
+            "unstable_steps": sum(1 for u in unstable if u > 0),
+            "unstable": unstable, "conv_flags": conv_flags,
+            "newton_iterations": iterations, "solutions": solutions}
+
+
+def family(z) -> str:
+    """The wave family of a solution ``(c, z_1, z_2)``: ``"slow"`` (z_2 ~
+    1.37) or ``"fast"`` (z_2 ~ 11; tests/test_cli_and_utils.py:221-239)."""
+    return "slow" if z[2] < SWEEP_FAST_FAMILY_Z2 else "fast"
+
+
+def warm_step_breakdown(pt, torch, emap, solve, beta_val, z0):
+    """One warm config-5 step: its unprofiled wall (median of 3), the
+    lift's share (each lift call timed with a synchronise before and
+    after) and K1's window fallbacks in a separate run, K1's device time
+    and the card's busy time by ``torch.profiler``, and the idle share
+    against the unprofiled wall."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(beta_val, z0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = statistics.median(walls) * 1e3
+
+    real_lift, lifts = emap.lift, []
+
+    def timed_lift(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_lift(*a, **kw)
+        torch.cuda.synchronize()
+        lifts.append(time.perf_counter() - t0)
+        return out
+    emap.lift = timed_lift
+    log, restore = count_fallbacks(torch, emap)
+    try:
+        res = solve(beta_val, z0)
+    finally:
+        emap.lift = real_lift
+        restore()
+    _, kern, busy_ms = device_profile(lambda: solve(beta_val, z0), torch)
+    k1 = [v for k, v in kern.items() if "evolve_kernel" in k]
+    k1_ms = sum(us for _, us in k1) / 1e3
+    lift_ms = sum(lifts) * 1e3
+    stats = fallback_stats(torch, log)
+    return {"beta": round(beta_val, 4), "iterations": res.iterations,
+            "converged": bool(res.converged),
+            "family": family(res.solution.tolist()),
+            "wall_ms_median_of_3": wall_ms,
+            "lift_calls": len(lifts), "lift_ms": lift_ms,
+            "k1_launches": sum(n for n, _ in k1), "k1_device_ms": k1_ms,
+            "other_ms": wall_ms - lift_ms - k1_ms,
+            "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "k1_fallback_share": stats["k1_fallback_share"],
+            "top_kernels": {k: {"launches": v[0], "device_us": v[1]}
+                            for k, v in sorted(kern.items(),
+                                               key=lambda kv: -kv[1][1])[:4]}}
+
+
+def sweep(pt, torch, dev, smi):
+    """BASELINE config 5 (``bench.py::bench_sweep_100pt``): N=512, R=1024,
+    f32, sigma 0.1, ``evolve_window=128``, Newton to 1e-4 in at most 10
+    iterations with forward FD at eps 1e-2 from the ``Driver.cu`` guess, 100
+    steps of beta += 0.1, with the predictor (``sweep_100pt``) and without
+    (``sweep_plain``), one warm solve outside the timed window.  K1 is held
+    to the plain windowed evolve at the sweep's shapes first; the launch
+    count is set to 0 just before the two sweeps and read just after; every
+    K1 launch of the sweeps reports its window fallbacks.  The family
+    guard: every converged solution of both sweeps lies on one wave family
+    (z_2 < 2, or the coexisting family's z_2 ~ 11), so neither warm start
+    hops from one family to the other.  Then one warm step is split into
+    K1, the lift and the rest on each family: the sweep's (from its first
+    converged solution) and the slow family's, reached by the slice's FD
+    step of 3e-4."""
+    from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
+    cfg = pt.ModelConfig(**CONFIG5)
+    ncfg = pt.NewtonConfig(**SWEEP_NEWTON)
+    stack = fd_stack(torch, dev, torch.float32, ncfg.fd_epsilon)
+    checks = [kernel_vs_plain(pt, torch, dev, "float32", cfg.n_real, Z,
+                              cfg.evolve_window)
+              for Z in (stack[:1], stack[1:])]
+    counters = {"evaluations": 0}
+    solve = sweep_solver(pt, dev, cfg, ncfg, counters)
+    guess = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
+    solve(BETA, guess)                          # warm, outside the timing
+    runs = []
+    log, restore = count_fallbacks(torch, emap)
+    try:
+        torch.cuda.synchronize()
+        evolve_cuda.LAUNCHES = 0
+        for predict in (True, False):
+            counters["evaluations"], start, k1_before = 0, len(log), \
+                evolve_cuda.LAUNCHES
+            run = run_sweep(pt, torch, dev, solve, predict)
+            run.update({"map_evaluations": counters["evaluations"],
+                        "k1_launches": evolve_cuda.LAUNCHES - k1_before,
+                        **fallback_stats(torch, log[start:])})
+            fams = [family(z) for _, z in run["solutions"]]
+            run["families"] = {f: fams.count(f) for f in set(fams)}
+            runs.append(run)
+        launches = evolve_cuda.LAUNCHES
+    finally:
+        restore()
+    breakdown = {}
+    first = next((s for r in runs for s in r["solutions"]), None)
+    if first is not None:
+        breakdown["sweep_family"] = warm_step_breakdown(
+            pt, torch, emap, solve, first[0] + SWEEP_BETA_STEP,
+            torch.tensor(first[1], dtype=torch.float32, device=dev))
+    slow_solve = sweep_solver(pt, dev, cfg, pt.NewtonConfig(
+        **dict(SWEEP_NEWTON, fd_epsilon=SLICE_FD_EPSILON)), counters)
+    slow = slow_solve(BETA, guess)
+    breakdown["slow_family_fd_3e-4"] = warm_step_breakdown(
+        pt, torch, emap, slow_solve, BETA + SWEEP_BETA_STEP, slow.solution)
+    row = {"phase": "sweep", "config": CONFIG5, "sigma": SIGMA,
+           "newton": SWEEP_NEWTON, "steps": SWEEP_STEPS, "launches": launches,
+           "k1_vs_plain": [{k: c[k] for k in (
+               "P", "identical_share", "max_residual_diff",
+               "kernel_ms_single_call", "plain_ms_single_call")}
+               for c in checks],
+           "runs": {("sweep_100pt" if r["predict"] else "sweep_plain"):
+                    {k: v for k, v in r.items() if k != "solutions"}
+                    for r in runs},
+           "first_converged": {("sweep_100pt" if r["predict"] else
+                                "sweep_plain"): r["solutions"][:1]
+                               for r in runs},
+           "warm_step": breakdown, "card": smi}
+    emit(row)
+    fams = {f for r in runs for f in r["families"]}
+    require(len(fams) <= 1, f"sweep: converged solutions on both wave "
+            f"families: {[r['families'] for r in runs]}")
+    for r in runs:
+        name = "sweep_100pt" if r["predict"] else "sweep_plain"
+        require(r["k1_launches"] > 0, f"sweep {name}: K1 was not launched")
+    require(launches == len(log), f"sweep: {launches} K1 launches, "
+            f"{len(log)} with their fallbacks counted")
+    require(bool(slow.converged) and family(slow.solution.tolist()) == "slow",
+            "sweep: the slow-family solve at FD step 3e-4 did not converge "
+            "there")
+    return row
+
+
+def run_cli(driver, argv):
+    """``driver.main(argv)`` with its standard output captured."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = driver.main(argv)
+    return rc, buf.getvalue()
+
+
+def cli(pt, torch, dev, smi):
+    """The port's CLI (``cli.driver.main``) on the card, with the launch
+    counts set to 0 just before and read just after: (i) config 5's flags
+    with ``--stability`` for 3 steps into a checkpoint, then ``--resume``
+    for 1, against an uninterrupted 4-step run (step 3 equal to 1e-6), at
+    the slice's FD step of 3e-4; (ii) ``--staged --dtype float64`` at
+    config 4 for 2 steps with ``--stability``, both converged, K2
+    launched.  Config 5's own FD step of 1e-2 runs one step beside them:
+    the CLI warm-starts from what a failed solve returned (``Driver.cu``),
+    and from the ``Driver.cu`` guess that solve ends non-finite on this
+    card, so the CLI stops with rc 1 there; its rc and lines are recorded,
+    and an rc 1 must come with the non-finite stop."""
+    from armadillocudalinearinterpolation_torch.cli import driver
+    from armadillocudalinearinterpolation_torch.model import (
+        evolve_cuda, replay_cuda)
+    from armadillocudalinearinterpolation_torch.utils.checkpoint import (
+        ContinuationCheckpoint)
+    c5 = ["--neurons", str(CONFIG5["n_neurons"]),
+          "--realisations", str(CONFIG5["n_real"]),
+          "--dtype", CONFIG5["dtype"], "--sigma", str(SIGMA),
+          "--evolve-window", str(CONFIG5["evolve_window"]),
+          "--tol", str(SWEEP_NEWTON["tolerance"]),
+          "--max-iter", str(SWEEP_NEWTON["max_iterations"]),
+          "--stability", "--quiet"]
+    c4 = ["--staged", "--dtype", "float64",
+          "--neurons", str(CONFIG4["n_neurons"]),
+          "--realisations", str(CONFIG4["n_real"]), "--sigma", str(SIGMA),
+          "--evolve-window", str(CONFIG4["evolve_window"]),
+          "--max-events", str(CONFIG4["max_events"]),
+          "--root-tol", str(CONFIG4["root_tol"]), "--tol", str(STAGED_TOL),
+          "--steps", "2", "--stability", "--quiet"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: str(Path(tmp) / k) for k in ("resumed", "full", "staged")}
+        eps = ["--fd-eps", str(SLICE_FD_EPSILON)]
+        plan = {"first_3": c5 + eps + ["--steps", "3", "--checkpoint",
+                                       dirs["resumed"]],
+                "resume_1": c5 + eps + ["--steps", "1", "--checkpoint",
+                                        dirs["resumed"], "--resume"],
+                "uninterrupted_4": c5 + eps + ["--steps", "4", "--checkpoint",
+                                               dirs["full"]],
+                "staged_config4": c4 + ["--checkpoint", dirs["staged"]],
+                "config5_fd_1e-2": c5 + ["--fd-eps", str(
+                    SWEEP_NEWTON["fd_epsilon"]), "--steps", "1"]}
+        torch.cuda.synchronize()
+        evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
+        for name, argv in plan.items():
+            k1, k2 = evolve_cuda.LAUNCHES, replay_cuda.LAUNCHES
+            t0 = time.perf_counter()
+            rc, out = run_cli(driver, argv)
+            torch.cuda.synchronize()
+            runs[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                          "k1_launches": evolve_cuda.LAUNCHES - k1,
+                          "k2_launches": replay_cuda.LAUNCHES - k2,
+                          "lines": [ln for ln in out.splitlines()
+                                    if ln.startswith(("step", "resuming",
+                                                      "ComputeF", "  eig"))]}
+        launches = {"evolve_kernel_windowed": evolve_cuda.LAUNCHES,
+                    "replay_kernel": replay_cuda.LAUNCHES}
+        steps = {k: ContinuationCheckpoint(d).load_all()
+                 for k, d in dirs.items()}
+    resumed, full, staged_steps = (steps["resumed"], steps["full"],
+                                   steps["staged"])
+    diff = (float(abs(resumed[3].solution - full[3].solution).max())
+            if len(resumed) == len(full) == 4 else math.inf)
+    row = {"phase": "cli", "runs": runs, "launches": launches,
+           "resumed_vs_uninterrupted_step3_max_diff": diff,
+           "indices": {k: [s.index for s in v] for k, v in steps.items()},
+           "config5_fd_3e-4_converged": [s.converged for s in full],
+           "config5_fd_3e-4_n_unstable": [s.n_unstable for s in full],
+           "staged": [{"beta": s.beta, "converged": s.converged,
+                       "residual_norm": s.residual_norm,
+                       "n_unstable": s.n_unstable,
+                       "solution": s.solution.tolist()}
+                      for s in staged_steps], "card": smi}
+    emit(row)
+    for name, r in runs.items():
+        if name == "config5_fd_1e-2":
+            require(r["rc"] == 0 or (r["rc"] == 1 and any(
+                "solution is non-finite" in ln for ln in r["lines"])),
+                f"cli {name}: rc {r['rc']} without the non-finite stop")
+        else:
+            require(r["rc"] == 0, f"cli {name}: rc {r['rc']}")
+    require(any(ln.startswith("resuming at step 3 (beta=13.3589)")
+                for ln in runs["resume_1"]["lines"]),
+            "cli: no resume line for step 3")
+    require(row["indices"]["resumed"] == [0, 1, 2, 3],
+            f"cli: resumed indices {row['indices']['resumed']}")
+    require(diff <= CLI_RESUME_BAR, f"cli: resumed step 3 differs from the "
+            f"uninterrupted run's by {diff}")
+    require(len(staged_steps) == 2
+            and all(s.converged for s in staged_steps),
+            "cli: the staged config-4 steps did not both converge")
+    require(runs["staged_config4"]["k2_launches"] > 0,
+            "cli: the staged run launched no K2")
+    require(min(r["k1_launches"] for r in runs.values()) > 0,
+            "cli: a run launched no K1")
+    return row
+
+
 def replay_registers() -> dict:
     """Registers and spill bytes of each K2 variant, as
     ``tools/kernel_resources.py`` reads them from ``nvcc -Xptxas -v`` with
@@ -1753,15 +2144,34 @@ def main() -> int:
     interp1d_kernels = interp1d(pt, torch, dev, smi)
     repairs(pt, torch, dev)
     replay_kernel, log = staged(pt, torch, dev, smi)
-    # K1 runs on three paths: the Driver.cu slice (every lane), the config-3
-    # map evaluation and the staged solve's f32 stage and discovery passes
-    # (with its firing-order log), both windowed
+    sw = sweep(pt, torch, dev, smi)
+    cl = cli(pt, torch, dev, smi)
+    # K1 runs on five paths: the Driver.cu slice (every lane), the config-3
+    # map evaluation, the staged solve's f32 stage and discovery passes
+    # (with its firing-order log), the config-5 sweeps and the CLI, all
+    # four windowed; K2 on the staged solve and the CLI's staged run
     full["launches"] = slice_launches
     full["launches_by_path"] = {"slice": slice_launches}
-    windowed["launches"] = m["launches"] + log["launches"]
-    windowed["launches_by_path"] = {"map_eval": m["launches"],
-                                    "staged": log["launches"]}
+    windowed["launches_by_path"] = {
+        "map_eval": m["launches"], "staged": log["launches"],
+        "sweep": sw["launches"],
+        "cli": cl["launches"]["evolve_kernel_windowed"]}
+    windowed["launches"] = sum(windowed["launches_by_path"].values())
     windowed["log"] = log
+    windowed["config5"] = {
+        "k1_vs_plain": sw["k1_vs_plain"],
+        "fallbacks": {name: {k: r[k] for k in (
+            "k1_rows", "k1_events", "k1_fallbacks_total",
+            "k1_fallback_share", "k1_fallbacks_most_in_one_launch")}
+            for name, r in sw["runs"].items()}}
+    windowed["max_abs_err"] = max(
+        windowed["max_abs_err"],
+        *(c["max_residual_diff"] for c in sw["k1_vs_plain"]))
+    replay_kernel["launches_by_path"] = {
+        "staged": replay_kernel["launches"],
+        "cli": cl["launches"]["replay_kernel"]}
+    replay_kernel["launches"] = sum(
+        replay_kernel["launches_by_path"].values())
     kernels = [full, windowed]
 
     kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel]

@@ -125,6 +125,10 @@ def test_port_never_imports_jax():
             "import armadillocudalinearinterpolation_torch.model.replay_cuda; "
             "import armadillocudalinearinterpolation_torch.model.evolve_batched; "
             "import armadillocudalinearinterpolation_torch.solvers.staged; "
+            "import armadillocudalinearinterpolation_torch.cli.driver; "
+            "import armadillocudalinearinterpolation_torch.utils.checkpoint; "
+            "import armadillocudalinearinterpolation_torch.utils.debug; "
+            "import armadillocudalinearinterpolation_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'armadillocudalinearinterpolation_tpu'))); "

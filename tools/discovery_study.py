@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Which discovery pass the staged solve needs at config 4, on one CUDA card.
+"""Which discovery pass the staged solve needs, on one CUDA card.
 
-    python3 tools/discovery_study.py
+    python3 tools/discovery_study.py [--neurons 4096] [--realisations 64]
+                                     [--max-events 4096]
 
-At N=4096, R=64, f64, sigma 0.1 (the seed-0 draw of ``chip_smoke.py``) it
-prints one JSON object with:
+At config 4 by default (N=4096, R=64, f64, sigma 0.1, the seed-0 draw of
+``chip_smoke.py``), or at the N, R and event-log bound given, it prints one
+JSON object with:
 
 * the drift of the f32 evolve's crossing times from the fp64 evolve's, at
   the fp64 root, on rows with the same outcome;
@@ -22,6 +24,7 @@ Imports no JAX; needs the port's kernels (built at first use).
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -31,7 +34,12 @@ ROOT = Path(__file__).resolve().parents[1]
 GUESS = (0.3310, 0.6914, 1.3557)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--neurons", type=int, default=4096)
+    p.add_argument("--realisations", type=int, default=64)
+    p.add_argument("--max-events", type=int, default=4096)
+    args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("discovery_study: needs a CUDA card", file=sys.stderr)
@@ -42,8 +50,9 @@ def main() -> int:
         emap, evolve_cuda, replay, replay_cuda)
 
     dev = torch.device("cuda")
-    cfg = pt.ModelConfig(n_neurons=4096, n_real=64, dtype="float64",
-                         root_tol=1e-12, max_events=4096)
+    cfg = pt.ModelConfig(n_neurons=args.neurons, n_real=args.realisations,
+                         dtype="float64", root_tol=1e-12,
+                         max_events=args.max_events)
     params = pt.MapParams.create(13.0589, 0.1, dtype="float64", device=dev)
     beta = pt.sample_beta(cfg, params,
                           torch.Generator(device=dev).manual_seed(0))
@@ -86,6 +95,9 @@ def main() -> int:
             & (r32.last_ind == r64.last_ind).all(1))
     drift = (r32.crossed_time.double() - r64.crossed_time)[same].abs()
     out = {"card": torch.cuda.get_device_name(0),
+           "config": {"n_neurons": cfg.n_neurons, "n_real": cfg.n_real,
+                      "max_events": cfg.max_events,
+                      "discovery_margin": replay.DISCOVERY_MARGIN},
            "direct_root": {"solution": root.solution.tolist(),
                            "iterations": root.iterations,
                            "residual_norm": root.residual_norm},
