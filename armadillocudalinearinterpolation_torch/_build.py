@@ -13,12 +13,15 @@ library.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -42,7 +45,7 @@ _SIGNATURES = {
     "atorch_bilinear_f64": [_P] * 3 + [_I] * 4 + [_P],
     "atorch_lerp1d": [_P] * 3 + [_L, _I] + [_D] * 2 + [_P],
     "atorch_lerp1d_sorted": [_P] * 4 + [_L, _I, _L, _I] + [_D] * 2 + [_P],
-    "atorch_interp1d": [_P] * 5 + [_L, _L] + [_I] * 3 + [_D] * 4 + [_P],
+    "atorch_interp1d": [_P] * 5 + [_L, _L] + [_I] * 4 + [_D] * 4 + [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -122,6 +125,29 @@ def load_library() -> ctypes.CDLL:
         lib.atorch_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str):
+    """The library's C function ``name``, bound once (the library is
+    built and loaded at the first call)."""
+    return getattr(load_library(), name)
+
+
+def launch(fn, what: str, device: int, *args) -> None:
+    """Call the C function ``fn`` with ``args`` and the current stream of
+    CUDA device ``device``, on that device; raise if it returns a CUDA
+    error.  The stream handle comes as a raw int (0.2 us, where
+    ``torch.cuda.current_stream().cuda_stream`` takes 8 us;
+    ``tools/host_overhead.py``)."""
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch._C._cuda_getDevice():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            code = fn(*args, stream)
+    if code:
+        check(load_library(), code, what)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

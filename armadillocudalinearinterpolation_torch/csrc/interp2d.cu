@@ -7,7 +7,7 @@
 //                                     binned kernel (:779-797);
 //   bilinear_binned_kernel<G, async>  _bilinear_binned_kernel (:670, K8), the
 //                                     method="binned" path;
-//   bilinear_gather_kernel<double, .> _gather8_kernel (:556, K6) and the f64
+//   bilinear_f64_kernel               _gather8_kernel (:556, K6) and the f64
 //                                     blend after it (:652-661),
 //                                     bilinear_batched_f64.
 // Their plain PyTorch versions are gather_plain, bin_queries, binned_plain
@@ -44,7 +44,15 @@
 //   of any size stays exact.  A TMA tiled copy (a 3-D tensor map over
 //   (B, H, W)) was the first design; on the card it stopped with an illegal
 //   instruction in every form tried (PERF.md, PR 5), so it is not used.
-// - f64: the direct gather in double throughout (native fp64).
+// - f64 (K6): the gather in double throughout (native fp64), several
+//   queries a thread: a thread loads its kF64Queries pairs, then all their
+//   corners, then blends, so that every load of those queries is in flight
+//   together, and an eighth as many CTAs as one thread a query run.  A
+//   corner pair (c0, c0 + 1) that starts on a 16-byte boundary comes in
+//   one 16-byte load, otherwise in two 8-byte loads.  Its call is cheap on
+//   the host too: ops/interp_cuda.py checks the common case in one test
+//   and calls this file's entry point, bound once, with nothing but the
+//   pointers, the sizes and the stream.
 // precision="bf16" hands the f32 kernels a bf16 copy of the grid (the top
 // 16 bits of each f32, masked): half the grid bytes; the blend stays f32.
 //
@@ -68,10 +76,11 @@ constexpr int kStagedVecs = 4;        // 16-byte pair loads per thread a round
 constexpr int kBinnedThreads = 512;   // K8
 constexpr int kMaxBands = 8;          // bands of a grid in the staged body
 constexpr int kMaxParts = 8;          // query parts of a grid in it
+constexpr int kF64Threads = 256;      // K6
+constexpr int kF64Queries = 8;        // K6's queries a thread, loads together
 
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
-template <> struct Pair<double> { using type = double2; };
 
 template <typename T>
 __device__ __forceinline__ T clampv(T x, T lo, T hi) {
@@ -81,12 +90,11 @@ __device__ __forceinline__ T clampv(T x, T lo, T hi) {
 __device__ __forceinline__ int floor_int(float x) { return (int)floorf(x); }
 __device__ __forceinline__ int floor_int(double x) { return (int)::floor(x); }
 
-// a grid value as the blend's type: f32, the bf16 copy's top 16 bits, f64
+// a grid value as the blend's type: f32, or the bf16 copy's top 16 bits
 __device__ __forceinline__ float value(float v) { return v; }
 __device__ __forceinline__ float value(uint16_t v) {
   return __uint_as_float((unsigned)v << 16);
 }
-__device__ __forceinline__ double value(double v) { return v; }
 
 template <typename G>
 __device__ __forceinline__ G load_raw(const G* g, size_t i) {
@@ -169,6 +177,59 @@ __global__ void bilinear_gather_kernel(
   const T top = lerp(g00, g01, k.tc);
   const T bot = lerp(g10, g11, k.tc);
   out[i] = lerp(top, bot, k.tr);
+}
+
+// ---------------------------------------------------------- K6: f64
+
+// g[0] and g[1]: one 16-byte load where g sits on a 16-byte boundary
+__device__ __forceinline__ void corner_pair(const double* g, double& a,
+                                            double& b) {
+  if (((uintptr_t)g & 15) == 0) {
+    const double2 v = __ldg(reinterpret_cast<const double2*>(g));
+    a = v.x;
+    b = v.y;
+  } else {
+    a = __ldg(g);
+    b = __ldg(g + 1);
+  }
+}
+
+// Grid blockIdx.y, queries [blockIdx.x * kF64Threads * kF64Queries, +that):
+// query u of a thread is threadIdx.x + u * kF64Threads of the block's
+// range, so that each round of pair loads and stores is coalesced.
+__global__ void __launch_bounds__(kF64Threads)
+    bilinear_f64_kernel(const double2* __restrict__ pts,
+                        const double* __restrict__ grids,
+                        double* __restrict__ out, int Q, int H, int W) {
+  const size_t b = blockIdx.y;
+  const long long q0 =
+      (long long)blockIdx.x * (kF64Threads * kF64Queries) + threadIdx.x;
+  const double* g = grids + b * H * W;
+  double2 p[kF64Queries];
+#pragma unroll
+  for (int u = 0; u < kF64Queries; ++u) {
+    const long long q = q0 + u * kF64Threads;
+    if (q < Q) p[u] = pts[b * Q + q];
+  }
+  Corner<double> k[kF64Queries];
+  double g00[kF64Queries], g01[kF64Queries], g10[kF64Queries],
+      g11[kF64Queries];
+#pragma unroll
+  for (int u = 0; u < kF64Queries; ++u) {
+    if (q0 + u * kF64Threads >= Q) continue;
+    k[u] = corner(p[u].x, p[u].y, H, W);
+    const double* e = g + (size_t)k[u].r0 * W + k[u].c0;
+    corner_pair(e, g00[u], g01[u]);
+    corner_pair(e + W, g10[u], g11[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < kF64Queries; ++u) {
+    const long long q = q0 + u * kF64Threads;
+    if (q >= Q) continue;
+    const double top = lerp(g00[u], g01[u], k[u].tc);
+    const double bot = lerp(g10[u], g11[u], k[u].tc);
+    out[b * Q + q] = lerp(top, bot, k[u].tr);
+  }
 }
 
 // ---------------------------------------------------- K7: staged gather
@@ -586,6 +647,23 @@ int launch_gather(const void* pts, const void* grids, void* out, int B, int Q,
   });
 }
 
+int launch_f64(const void* pts, const void* grids, void* out, int B, int Q,
+               int H, int W, void* stream) {
+  const int err = check_common(pts, sizeof(double2), B, Q, H, W);
+  if (err != cudaSuccess || B == 0 || Q == 0) return err;
+  constexpr int per_block = kF64Threads * kF64Queries;
+  const unsigned blocks =
+      (unsigned)(((long long)Q + per_block - 1) / per_block);
+  return for_grid_chunks(B, [&](int b0, int nb) {
+    bilinear_f64_kernel<<<dim3(blocks, (unsigned)nb), kF64Threads, 0,
+                          (cudaStream_t)stream>>>(
+        static_cast<const double2*>(pts) + (size_t)b0 * Q,
+        static_cast<const double*>(grids) + (size_t)b0 * H * W,
+        static_cast<double*>(out) + (size_t)b0 * Q, Q, H, W);
+    return (int)cudaGetLastError();
+  });
+}
+
 template <typename G>
 int launch_staged(const void* pts, const void* grids, void* out, int B, int Q,
                   int H, int W, int bands, int parts, void* stream) {
@@ -760,5 +838,5 @@ extern "C" int atorch_bilinear_binned(const void* grids, const void* pairs,
 extern "C" int atorch_bilinear_f64(const void* pts, const void* grids,
                                    void* out, int B, int Q, int H, int W,
                                    void* stream) {
-  return launch_gather<double, double>(pts, grids, out, B, Q, H, W, stream);
+  return launch_f64(pts, grids, out, B, Q, H, W, stream);
 }

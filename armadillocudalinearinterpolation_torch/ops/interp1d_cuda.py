@@ -25,7 +25,11 @@ Each kernel has a plain PyTorch version beside it (:func:`lerp1d_plain`,
 :func:`lerp1d_sorted_plain`, :func:`interp1d_plain`) that follows the
 kernel's arithmetic step by step.  CUDA tensors launch the kernel, CPU
 tensors take the plain version, anything else raises; nothing falls back.
-``LAUNCHES`` counts the launches of each kernel by name.  The TPU kernels'
+``LAUNCHES`` counts the launches of each kernel by name, ``BODIES`` those
+of each of K5's four bodies: its direct mode keeps the tables in one CTA's
+shared memory where they fit (:func:`interp1d_body`), and its sorted mode
+writes a batch's results out in id order (:func:`sorted_body`); both
+choices are plain functions of the shapes and the card.  The TPU kernels'
 chunked in-vreg sweeps, pre-shifted table copies, f32-coded bucket table
 and restore sorts are not carried over: the card gathers directly, and the
 sorted routes write each result straight to its query id.
@@ -34,6 +38,7 @@ sorted routes write each result straight to its query id.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,6 +50,38 @@ MAX_TABLE = 65536          # table nodes the JAX package's kernels accept
 _F32_MAX = float(np.finfo(np.float32).max)
 
 LAUNCHES = {"lerp1d": 0, "lerp1d_sorted": 0, "interp1d": 0}
+BODIES = {"interp1d_shared": 0, "interp1d_readonly": 0, "interp1d_batch": 0,
+          "interp1d_scatter": 0}
+# K5's body numbers in csrc/interp1d.cu
+_BODY_CODE = {"shared": 0, "readonly": 1, "batch": 2, "scatter": 3}
+_BATCH_STAGE = 12288       # the largest batch K5's batch body stages
+
+
+def shared_table_bytes(n: int, m: int) -> int:
+    """Shared memory of K5's shared body for ``n`` nodes and ``m``
+    buckets: the columns xp and fp (8 bytes a node, padded to 16) and the
+    16-bit bucket map."""
+    return -(-8 * n // 16) * 16 + 2 * m
+
+
+def interp1d_body(n: int, m: int, optin: int) -> str:
+    """K5's body for the direct mode: ``"shared"`` where the tables fit
+    the ``optin`` bytes of shared memory one CTA may take (up to 12672
+    nodes at 4 buckets a node on an H100's 232448), else ``"readonly"``."""
+    return "shared" if shared_table_bytes(n, m) <= optin else "readonly"
+
+
+def sorted_body(Qb: int) -> str:
+    """K5's body for the sorted mode on batches of ``Qb`` queries: one CTA
+    a batch, written out in id order (``"batch"``), up to 12288 queries;
+    above that grid-stride, each result to its id (``"scatter"``)."""
+    return "batch" if Qb <= _BATCH_STAGE else "scatter"
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_optin(index: int) -> int:
+    return torch.cuda.get_device_properties(
+        index).shared_memory_per_block_optin
 
 
 def _pow2_batches(Q: int, target_qb: int = 4096) -> int:
@@ -160,12 +197,21 @@ class Interp1d:
     The tables live on ``fp``'s device.  ``nodes`` row ``i`` is ``xp[i],
     xp[i+1], fp[i], fp[i+1]`` in f32 (``+inf`` and ``0`` past the last
     node), one 16-byte load per node: the counterpart of the TPU's
-    interleaved ``packed`` table (``interp_pallas.py:470-475``).
+    interleaved ``packed`` table (``interp_pallas.py:470-475``).  The
+    kernel's compact and packed forms are derived from ``bucket`` and
+    ``nodes``: ``columns`` holds ``xp`` then ``fp`` and ``bucket16`` the
+    bucket map as 16-bit node indices (the shared body copies both into
+    shared memory: 64 KB at 4096 nodes); ``seeds`` row ``k`` is
+    ``bucket[k]`` and the bits of ``xp[bucket[k]]`` (the read-only bodies'
+    seed and step-back test in one 8-byte load).
     """
     bucket: torch.Tensor     # (m,) int32: the node at or left of each edge
     nodes: torch.Tensor      # (n, 4) f32
     S: int                   # advance steps from a (stepped-back) seed
     lims: tuple              # (e0, inv_du, x_lo, x_hi), f32 values
+    columns: torch.Tensor    # (2, n) f32: xp, fp
+    bucket16: torch.Tensor   # (m,) int16: bucket as uint16 bit patterns
+    seeds: torch.Tensor      # (m, 2) int32: bucket, bits of xp[bucket]
 
     @property
     def n(self) -> int:
@@ -188,12 +234,13 @@ class Interp1d:
         Q = q.shape[0]
         if Q == 0:
             return torch.empty(xq.shape, dtype=xq.dtype, device=xq.device)
-        run = interp1d_cuda if _on_card(q) else interp1d_plain
         if method == "sorted":
-            qs, order = sort_batches(q, _pow2_batches(Q))
-            out = run(self, qs, order, Q)
+            nb = _pow2_batches(Q)
+            qs, order = sort_batches(q, nb)
+            out = (interp1d_cuda(self, qs, order, Q, nb) if _on_card(q)
+                   else interp1d_plain(self, qs, order, Q))
         else:
-            out = run(self, q)
+            out = (interp1d_cuda if _on_card(q) else interp1d_plain)(self, q)
         return out.reshape(xq.shape).to(xq.dtype)
 
 
@@ -233,11 +280,8 @@ def interp1d_bracket(table: Interp1d, qc: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------ kernel wrappers
 
 def _launch(key: str, entry: str, dev: torch.device, *args) -> None:
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(*args, stream)
-    _build.check(lib, code, f"{key} kernel launch")
+    _build.launch(_build.entry(entry), f"{key} kernel launch", dev.index,
+                  *args)
     LAUNCHES[key] += 1
 
 
@@ -300,23 +344,41 @@ def lerp1d_sorted_cuda(qs: torch.Tensor, order: torch.Tensor,
 
 
 def interp1d_cuda(table: Interp1d, q32: torch.Tensor,
-                  order: torch.Tensor | None = None,
-                  Q: int | None = None) -> torch.Tensor:
-    """K5 on the card: one thread per query, grid-stride.  With ``order``,
-    ``q32`` holds sorted values and each result goes to its query id."""
-    _check_kernel_args("interp1d_cuda", table.nodes, q32, table.bucket)
+                  order: torch.Tensor | None = None, Q: int | None = None,
+                  n_batches: int | None = None) -> torch.Tensor:
+    """K5 on the card.  Without ``order``: the queries ``q32`` in id order,
+    through the body :func:`interp1d_body` picks for the table and the
+    card.  With ``order``: ``q32`` holds ``n_batches`` rows of sorted values
+    and ``order`` their ids (:func:`sort_batches`), each result goes to its
+    query id, through the body :func:`sorted_body` picks for the rows."""
+    _check_kernel_args("interp1d_cuda", table.nodes, q32, table.bucket,
+                       table.columns, table.seeds)
     if q32.dtype != torch.float32 or q32.ndim != 1:
         raise TypeError("interp1d_cuda: queries must be flat float32")
+    if table.bucket16.device != q32.device:
+        raise ValueError("interp1d_cuda: tensors must be on one device")
+    total = q32.shape[0]
     if order is None:
-        Q = q32.shape[0]
+        Q, n_batches = total, 1
+        body = interp1d_body(table.n, table.m,
+                             _shared_optin(q32.device.index))
+        tabs = (table.columns, table.bucket16) if body == "shared" else (
+            table.nodes, table.seeds)
     else:
         _check_kernel_args("interp1d_cuda", table.nodes, order)
         _check_order("interp1d_cuda", q32, order, Q)
+        if not (isinstance(n_batches, int) and n_batches >= 1
+                and total % n_batches == 0):
+            raise ValueError("interp1d_cuda: qs and order must be n_batches "
+                             "rows from sort_batches")
+        body = sorted_body(total // n_batches)
+        tabs = (table.nodes, table.seeds)
     out = torch.empty(Q, dtype=torch.float32, device=q32.device)
     _launch("interp1d", "atorch_interp1d", q32.device, q32.data_ptr(),
-            None if order is None else order.data_ptr(),
-            table.bucket.data_ptr(), table.nodes.data_ptr(), out.data_ptr(),
-            Q, q32.shape[0], table.n, table.m, table.S, *table.lims)
+            None if order is None else order.data_ptr(), tabs[0].data_ptr(),
+            tabs[1].data_ptr(), out.data_ptr(), Q, total, n_batches, table.n,
+            table.m, table.S, *table.lims, _BODY_CODE[body])
+    BODIES["interp1d_" + body] += 1
     return out
 
 
@@ -403,8 +465,14 @@ def make_interp1d(xp: torch.Tensor, fp: torch.Tensor, *,
     nodes = torch.stack([
         x32, torch.cat([x32[1:], x32.new_full((1,), float("inf"))]),
         f32, torch.cat([f32[1:], f32.new_zeros(1)])], dim=1).contiguous()
-    return Interp1d(bucket=torch.from_numpy(bucket.astype(np.int32)).to(dev),
-                    nodes=nodes, S=S, lims=tuple(float(v) for v in lims))
+    bucket_t = torch.from_numpy(bucket.astype(np.int32)).to(dev)
+    return Interp1d(
+        bucket=bucket_t, nodes=nodes, S=S, lims=tuple(float(v) for v in lims),
+        columns=torch.stack([x32, f32]),
+        bucket16=torch.from_numpy(bucket.astype(np.uint16).view(np.int16)).to(
+            dev),
+        seeds=torch.stack([bucket_t, x32[bucket_t.long()].view(torch.int32)],
+                          dim=1).contiguous())
 
 
 def interp1d(xq: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor,

@@ -12,7 +12,9 @@ Public entry points, with the JAX functions' contracts:
   ``"bf16"`` reads the grid at bf16 precision (the top 16 bits of each f32,
   masked as the JAX package masks its high part) and blends in f32.
 - :func:`bilinear_batched_f64` ``(pts, grids)``: native fp64 (K6), with the
-  JAX package's ``MAX_TABLE`` limit on ``H*W``.
+  JAX package's ``MAX_TABLE`` limit on ``H*W``.  Contiguous float64 tensors
+  on one card pass one test (:func:`_f64_dims`) and go straight to the
+  launch; anything else takes the full checks and casts.
 
 K7 has two bodies, chosen by shape before the launch (:func:`gather_body`):
 the staged body copies each grid, in bands of rows, into the shared memory
@@ -251,17 +253,8 @@ def _check_kernel_args(fn: str, pts: torch.Tensor, grid: torch.Tensor,
 
 
 def _launch(key: str, entry: str, dev: torch.device, *args) -> None:
-    lib = _build.load_library()
-    # the current stream's handle as an int: 0.2 us against 8 us for
-    # torch.cuda.current_stream().cuda_stream (tools/host_overhead.py)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    if dev.index == torch.cuda.current_device():
-        code = getattr(lib, entry)(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            code = getattr(lib, entry)(*args, stream)
-    if code:
-        _build.check(lib, code, f"{key} kernel launch")
+    _build.launch(_build.entry(entry), f"{key} kernel launch", dev.index,
+                  *args)
     LAUNCHES[key] += 1
 
 
@@ -369,20 +362,53 @@ def binned_cuda(grid: torch.Tensor, bins: Bins) -> torch.Tensor:
     return _binned(grid, bins)
 
 
-def _f64(pts64: torch.Tensor, grids64: torch.Tensor) -> torch.Tensor:
-    B, Q, _ = pts64.shape
-    _, H, W = grids64.shape
+def _f64_dims(pts: torch.Tensor, grids: torch.Tensor):
+    """``(B, Q, H, W)`` where ``pts (B, Q, 2)`` and ``grids (B, H, W)``, H
+    and W >= 2, are contiguous float64 tensors on one CUDA device: all that
+    K6's launch needs, in one test of the common case; ``None`` otherwise
+    (the full checks then name what is wrong)."""
+    if (pts.dtype is torch.float64 and grids.dtype is torch.float64
+            and pts.is_cuda and grids.is_cuda and pts.is_contiguous()
+            and grids.is_contiguous()):
+        ps, gs = pts.shape, grids.shape
+        if (len(ps) == 3 and len(gs) == 3 and ps[2] == 2 and ps[0] == gs[0]
+                and gs[1] >= 2 and gs[2] >= 2
+                and pts.get_device() == grids.get_device()):
+            return ps[0], ps[1], gs[1], gs[2]
+    return None
+
+
+def _f64(pts64: torch.Tensor, grids64: torch.Tensor, B: int, Q: int, H: int,
+         W: int) -> torch.Tensor:
+    """Launch K6 on checked tensors: the bound C function called with the
+    pointers, the sizes and the raw stream handle, on the tensors' device.
+    This is ``_build.launch`` written out: the helper's extra call cost
+    0.7-1 us of a ~12 us call on the card's host (tools/host_overhead.py,
+    ``f64_launch_helper_no_launch`` against ``f64_ctypes_call_no_launch``)."""
     out = torch.empty(B, Q, dtype=torch.float64, device=pts64.device)
-    _launch("bilinear_f64", "atorch_bilinear_f64", pts64.device,
-            pts64.data_ptr(), grids64.data_ptr(), out.data_ptr(), B, Q, H, W)
+    dev = pts64.get_device()
+    args = (pts64.data_ptr(), grids64.data_ptr(), out.data_ptr(), B, Q, H, W,
+            torch._C._cuda_getCurrentRawStream(dev))
+    fn = _build.entry("atorch_bilinear_f64")
+    if dev == torch._C._cuda_getDevice():
+        code = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args)
+    if code:
+        _build.check(_build.load_library(), code, "bilinear_f64 kernel launch")
+    LAUNCHES["bilinear_f64"] += 1
     return out
 
 
 def f64_cuda(pts64: torch.Tensor, grids64: torch.Tensor) -> torch.Tensor:
-    """K6 on the card: one thread per query, in double throughout."""
-    _check_kernel_args("f64_cuda", pts64, grids64, torch.float64,
-                       (torch.float64,))
-    return _f64(pts64, grids64)
+    """K6 on the card: several queries a thread, in double throughout."""
+    dims = _f64_dims(pts64, grids64)
+    if dims is None:
+        _check_kernel_args("f64_cuda", pts64, grids64, torch.float64,
+                           (torch.float64,))
+        dims = (*pts64.shape[:2], *grids64.shape[1:])
+    return _f64(pts64, grids64, *dims)
 
 
 # ------------------------------------------------------- entry points
@@ -426,10 +452,13 @@ def bilinear_batched_f64(pts: torch.Tensor,
     """Batched 2-D bilinear at full f64 accuracy: the arguments of
     :func:`bilinear_batched`, cast to float64; ``H*W <= MAX_TABLE``, the
     JAX package's limit, so that both packages take the same inputs."""
-    _, _, H, W = _check_inputs("bilinear_batched_f64", pts, grids)
-    if H * W > MAX_TABLE:
-        raise ValueError(f"grid too large: {H}x{W} has more than "
-                         f"MAX_TABLE = {MAX_TABLE} nodes")
-    p = pts.to(torch.float64)
-    g = grids.to(torch.float64)
-    return _f64(p, g) if p.device.type == "cuda" else f64_plain(p, g)
+    dims = _f64_dims(pts, grids)
+    if dims is not None and dims[2] * dims[3] <= MAX_TABLE:
+        return _f64(pts, grids, *dims)
+    dims = _check_inputs("bilinear_batched_f64", pts, grids)
+    if dims[2] * dims[3] > MAX_TABLE:
+        raise ValueError(f"grid too large: {dims[2]}x{dims[3]} has more "
+                         f"than MAX_TABLE = {MAX_TABLE} nodes")
+    p = pts if pts.dtype is torch.float64 else pts.to(torch.float64)
+    g = grids if grids.dtype is torch.float64 else grids.to(torch.float64)
+    return _f64(p, g, *dims) if p.is_cuda else f64_plain(p, g)

@@ -21,15 +21,18 @@ the device binning against the plain binning (equal offsets, the same ids
 in every bin, no sort kernel in the profiled ``auto`` call); each kernel and
 body against its plain version and a host-double oracle; times warm and
 with the L2 flushed before each call, device time by ``torch.profiler``
-beside ``grid_sample``'s, and the host time per wrapper call.  Then the 1-D
+beside ``grid_sample``'s, and the host time per wrapper call and per
+``bilinear_batched_f64`` call.  Then the 1-D
 family (``interp1d``): ``lerp1d`` at BASELINE
 config 1 (1000 nodes, 10M queries; the uniform-grid kernel), at 65536 nodes
 with 2M queries (the same kernel: the card study of
 ``tools/interp1d_route_study.py`` found no shape where a sorted route
 wins), ``lerp1d_binned`` there (the sorted-batch kernel) and
 ``make_interp1d`` on 4096 non-uniform nodes with 2M queries (the
-non-uniform kernel, direct and on the sorted route), with small tables
-and extreme queries through all three
+non-uniform kernel, direct and on the sorted route, each mode with the
+body it ran and its own bound: the bytes of its own call's tensors), the
+non-uniform kernel at 1024, 4096 and 65536 nodes in both modes, with small
+tables and extreme queries through all three
 kernels; each kernel against its plain version and ``numpy.interp`` in
 float64, and timed, with ``grid_sample`` on a 1 x n image beside the
 uniform-grid kernels.  Then the launch-size repairs (``repairs``): 65536
@@ -131,6 +134,7 @@ LERP_CONFIG1 = (1000, 10_000_000)      # sin table on [-3, 3], queries there
 LERP_64K = (65536, 2_097_152)          # the same, 64k nodes
 INTERP_NONUNIFORM = (4096, 2_097_152)  # gaps 0.1 + U[0, 1), fp sin(0.05 x)
 SMALL_TABLES = (2, 129, 4096)          # with out-of-range and extreme queries
+K5_NODES = (1024, 4096, 65536)         # K5's bodies by table size, 2M queries
 SMALL_QUERIES = 5001
 EXTREME = (1e30, -1e30, 1e12, -1e12, math.inf, -math.inf, math.nan)
 # kernel vs plain: the same operation order without fused multiply-adds
@@ -584,6 +588,20 @@ def timed(fn, torch, n=20):
     return single, total / n
 
 
+def timed_in_turns(fns, torch, n=20):
+    """Median ms of ``n`` warm single calls of each of ``fns`` (a dict),
+    called in turns, one of each a round, so that the host's drift during
+    the rounds falls on all of them alike."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    ms = {k: [] for k in fns}
+    for _ in range(n):
+        for k, fn in fns.items():
+            ms[k].append(cuda_ms(fn, torch)[0])
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
 def timed_cold(fn, torch, flush, n=10):
     """Median ms of ``n`` single calls, each after ``flush()`` has written
     more than the 50 MB L2 (so the call finds its inputs in DRAM)."""
@@ -844,6 +862,8 @@ def interp2d(pt, torch, dev, smi: str):
                                  INTERP_LARGE),
         "f64": (lambda: ic.f64_cuda(p64, g64), INTERP_F64),
         "f64_plain": (lambda: ic.f64_plain(p64, g64), INTERP_F64),
+        "f64_entry": (lambda: pt.bilinear_batched_f64(p64, g64),
+                      INTERP_F64),
     }
     for key in gs_in:
         calls[f"grid_sample_{key}"] = (
@@ -853,6 +873,8 @@ def interp2d(pt, torch, dev, smi: str):
     times = {k: timed(fn, torch) for k, (fn, _) in calls.items()}
     rate = {k: leg[0] * leg[3] / (times[k][0] * 1e-3) / 1e6
             for k, (_, leg) in calls.items()}
+    f64_turns = timed_in_turns({k: calls[k][0] for k in (
+        "f64_entry", "grid_sample_f64")}, torch)
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     cold_keys = ("gather", "gather_direct", "gather_bf16",
                  "gather_bf16_direct", "config2_entry_auto", "binned",
@@ -888,6 +910,8 @@ def interp2d(pt, torch, dev, smi: str):
             "binned_cuda": host_us(lambda: ic.binned_cuda(gT, binsT),
                                    torch),
             "f64_cuda": host_us(lambda: ic.f64_cuda(pT64, gT64), torch),
+            "bilinear_batched_f64": host_us(
+                lambda: pt.bilinear_batched_f64(pT64, gT64), torch),
             "bilinear_batched_full": host_us(
                 lambda: pt.bilinear_batched(pT, gT), torch),
             "bilinear_batched_binned": host_us(
@@ -917,6 +941,9 @@ def interp2d(pt, torch, dev, smi: str):
            "device_us_per_call": dev_us,
            "device_us_by_kernel": dev_kernels,
            "host_us_per_call_of_1000": host,
+           # K6's entry against grid_sample's f64 call, single calls in
+           # turns
+           "f64_entry_vs_grid_sample_ms_in_turns": f64_turns,
            "mq_per_s": rate, "library_grid_sample": library, "card": smi}
     emit(row)
 
@@ -956,9 +983,13 @@ def interp2d(pt, torch, dev, smi: str):
               (gL, binsL.pairs, binsL.order, binsL.offsets, outL),
               "float32", "binned"),
         binning_entry,
-        entry("bilinear_f64", 556, "f64", routes["f64"]["bilinear_f64"],
-              ["f64_vs_plain", "small_f64_vs_plain"], (p64, g64, out64),
-              "float64", "f64"),
+        {**entry("bilinear_f64", 556, "f64", routes["f64"]["bilinear_f64"],
+                 ["f64_vs_plain", "small_f64_vs_plain"], (p64, g64, out64),
+                 "float64", "f64"),
+         "entry_ms": times["f64_entry"][0],
+         "entry_vs_library_ms_in_turns": f64_turns,
+         "host_us_per_call": {k: host[k] for k in ("f64_cuda",
+                                                   "bilinear_batched_f64")}},
     ]
 
 
@@ -1016,8 +1047,9 @@ def interp1d(pt, torch, dev, smi: str):
     """The 1-D family: the legs through the public entry points with the
     launch counts set to 0 just before each and read just after (``lerp1d``
     and ``make_interp1d``'s direct routes, ``lerp1d_binned`` and the sorted
-    non-uniform route); each kernel against its plain
-    version and numpy.interp; timings, device time by the profiler."""
+    non-uniform route, with K5's body counts); each kernel against its
+    plain version and numpy.interp; timings, device time by the profiler;
+    K5's two modes each with its own bound, and K5 by table size."""
     import numpy as np
     from armadillocudalinearinterpolation_torch.ops import interp1d_cuda as i1
     launches = i1.LAUNCHES
@@ -1039,11 +1071,15 @@ def interp1d(pt, torch, dev, smi: str):
     torch.cuda.synchronize()
 
     def drive(fn):
-        for k in launches:
-            launches[k] = 0
+        for d in (launches, i1.BODIES):
+            for k in d:
+                d[k] = 0
         out = fn()
         torch.cuda.synchronize()
         return out, dict(launches)
+
+    def bodies_run():
+        return {k: v for k, v in i1.BODIES.items() if v}
 
     nbK, nbN = i1._pow2_batches(QK), i1._pow2_batches(QN)
     out1, route1 = drive(lambda: pt.lerp1d(q1, fp1, x0, dx1))
@@ -1051,7 +1087,15 @@ def interp1d(pt, torch, dev, smi: str):
     outKb, routeKb = drive(lambda: pt.lerp1d_binned(qK, fpK, x0, dxK,
                                                     n_batches=nbK))
     outNa, routeNa = drive(lambda: tableN(qN))
+    bodyNa = bodies_run()
     outN, routeN = drive(lambda: tableN(qN, method="sorted"))
+    bodyN = bodies_run()
+    # K5's bodies at 4096 nodes: the tables in shared memory (direct), one
+    # CTA a batch (sorted)
+    require(bodyNa == {"interp1d_shared": 1} and bodyN == {
+                "interp1d_batch": 1},
+            f"interp1d non-uniform: bodies {bodyNa} (direct) and {bodyN} "
+            "(sorted)")
     for name, out, Q in (("config 1", out1, Q1), ("64k", outK, QK),
                          ("64k binned", outKb, QK),
                          ("non-uniform", outNa, QN),
@@ -1132,7 +1176,7 @@ def interp1d(pt, torch, dev, smi: str):
         want = np.interp(q_h.astype(np.float64), xp_h.astype(np.float64),
                          fpn_h.astype(np.float64))
         k5 = i1.interp1d_cuda(table, q)
-        k5s = i1.interp1d_cuda(table, qs, order, SMALL_QUERIES)
+        k5s = i1.interp1d_cuda(table, qs, order, SMALL_QUERIES, 8)
         checks[f"small_interp1d_{n}_vs_plain"] = (
             k5, i1.interp1d_plain(table, q), plain)
         checks[f"small_interp1d_{n}_vs_numpy"] = (k5, want, ref)
@@ -1161,6 +1205,43 @@ def interp1d(pt, torch, dev, smi: str):
         require(errs[key] <= bars[bar],
                 f"interp1d {key}: {errs[key]} > {bars[bar]}")
 
+    # K5 at 1024, 4096 and 65536 non-uniform nodes x 2M uniform queries,
+    # both modes, each with the body it ran, against the plain version;
+    # each mode's bound from the bytes of its own call's tensors
+    by_nodes = {}
+    for n in K5_NODES:
+        xp_h, fpn_h = gap_nodes(n, 12)
+        table = pt.make_interp1d(on_card(xp_h), on_card(fpn_h))
+        q = on_card(uniform_queries(QN, -1.0, float(xp_h[-1]) + 1.0, 13))
+        qs, order = i1.sort_batches(q, nbN)
+        want = i1.interp1d_plain(table, q)
+        rec = {"S": table.S, "buckets": table.m}
+        for mode, fn, io in (
+                ("direct", lambda: i1.interp1d_cuda(table, q),
+                 (q, table.nodes, table.bucket)),
+                ("sorted", lambda: i1.interp1d_cuda(table, qs, order, QN,
+                                                    nbN),
+                 (qs, order, table.nodes, table.bucket))):
+            before = dict(i1.BODIES)
+            out = fn()
+            torch.cuda.synchronize()
+            ran = [k for k, v in i1.BODIES.items() if v != before[k]]
+            key = f"interp1d_{n}_{mode}_vs_plain"
+            errs[key] = nan_aware_err(out, want)
+            require(errs[key] <= bars["vs_plain"],
+                    f"interp1d {key}: {errs[key]} > {bars['vs_plain']}")
+            b_ms, _ = bound(nbytes(*io, out), LERP_OPS_PER_QUERY * QN,
+                            "float32")
+            d_us = device_us(fn, torch)[0]
+            rec[mode] = {"body": ran, "device_us": d_us, "bound_ms": b_ms,
+                         "share_of_bound": (b_ms * 1e3 / d_us if d_us
+                                            else None)}
+        by_nodes[n] = rec
+        del table, q, qs, order, want, out
+    require(by_nodes[65536]["direct"]["body"] == ["interp1d_readonly"]
+            and by_nodes[4096]["direct"]["body"] == ["interp1d_shared"],
+            f"interp1d: K5's direct bodies by nodes {by_nodes}")
+
     # times, kernel beside plain on the same inputs: (call, queries)
     calls = {
         "lerp1d": (lambda: i1.lerp1d_cuda(q1, fp1, *lims1), Q1),
@@ -1178,7 +1259,7 @@ def interp1d(pt, torch, dev, smi: str):
         "lerp1d_at_64k_plain": (lambda: i1.lerp1d_plain(qK, fpK, *limsK),
                                 QK),
         "interp1d_sorted": (lambda: i1.interp1d_cuda(
-            tableN, qsN, orderN, QN), QN),
+            tableN, qsN, orderN, QN, nbN), QN),
         "interp1d_sorted_plain": (lambda: i1.interp1d_plain(
             tableN, qsN, orderN, QN), QN),
         "sort_nonuniform": (lambda: i1.sort_batches(qN, nbN), QN),
@@ -1225,7 +1306,24 @@ def interp1d(pt, torch, dev, smi: str):
             "max_abs_err_vs_kernel": nan_aware_err(grid_sample(*args),
                                                    out)}
         del args
+    # K5's two modes at 4096 x 2M, each with its own call's bound: direct
+    # moves the queries, the tables and the output; sorted also the int64
+    # order
+    k5_modes = {}
+    for mode, key, body, io in (
+            ("direct", "interp1d", bodyNa,
+             (qN, tableN.nodes, tableN.bucket, outN_direct)),
+            ("sorted", "interp1d_sorted", bodyN,
+             (qsN, orderN, tableN.nodes, tableN.bucket, outN))):
+        b_ms, b_by = bound(nbytes(*io), LERP_OPS_PER_QUERY * QN, "float32")
+        k5_modes[mode] = {
+            "body": list(body), "device_us": dev_us[key],
+            "ms_median_of_20": times[key][0],
+            "ms_back_to_back_mean_of_20": times[key][1],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms * 1e3 / dev_us[key]}
     row = {"phase": "interp1d",
+           "k5_modes": k5_modes, "k5_by_nodes": by_nodes,
            "shapes": {"config1": LERP_CONFIG1, "64k": LERP_64K,
                       "nonuniform": INTERP_NONUNIFORM,
                       "small_tables": SMALL_TABLES},
@@ -1274,10 +1372,14 @@ def interp1d(pt, torch, dev, smi: str):
         entry("lerp1d_sorted_kernel", 138, "lerp1d_sorted",
               routeKb["lerp1d_sorted"],
               vs_plain("lerp1d_sorted"), (qsK, orderK, fpK, outKb)),
-        entry("interp1d_kernel", 344, "interp1d_sorted",
-              routeNa["interp1d"] + routeN["interp1d"],
-              vs_plain("interp1d") + ["dense_cluster_vs_plain"],
-              (qsN, orderN, tableN.nodes, tableN.bucket, outN)),
+        # the direct mode, the entry point's default, with the sorted
+        # mode's figures beside it
+        {**entry("interp1d_kernel", 344, "interp1d",
+                 routeNa["interp1d"] + routeN["interp1d"],
+                 vs_plain("interp1d") + ["dense_cluster_vs_plain"],
+                 (qN, tableN.nodes, tableN.bucket, outN_direct)),
+         "body": list(bodyNa), "sorted": k5_modes["sorted"],
+         "by_nodes": by_nodes},
     ]
 
 

@@ -202,6 +202,34 @@ def test_bilinear_f64_matches_host_double_and_pallas(interpret, in_dtype):
     np.testing.assert_allclose(got, want, rtol=0, atol=F64_ATOL)
 
 
+# the bench's f64 leg cut to 2 grids; odd W; one query
+@pytest.mark.parametrize("shape", [(2, 256, 256, 2048), (3, 33, 7, 501),
+                                   (2, 9, 3, 1)])
+def test_bilinear_f64_shapes_match_pallas(interpret, shape):
+    B, H, W, Q = shape
+    grids, pts = grids_pts(22, B, H, W, Q, -2.0, max(H, W) + 2.0, np.float64)
+    got, want = both(interp_cuda.bilinear_batched_f64,
+                     interp_pallas.bilinear_batched_f64, pts, grids)
+    assert got.shape == (B, Q) and got.dtype == np.float64
+    np.testing.assert_allclose(got, host_double(pts, grids), rtol=0,
+                               atol=F64_ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=F64_ATOL)
+
+
+def test_f64_launch_test_never_takes_cpu_tensors():
+    """The entry's one-test path to the launch answers only for CUDA
+    tensors: CPU tensors, of any dtype or layout, take the full checks and
+    the plain version."""
+    p64, g64 = torch.zeros(2, 5, 2, dtype=torch.float64), torch.zeros(
+        2, 4, 6, dtype=torch.float64)
+    assert interp_cuda._f64_dims(p64, g64) is None
+    assert interp_cuda._f64_dims(p64.to("meta"), g64.to("meta")) is None
+    before = dict(interp_cuda.LAUNCHES)
+    out = interp_cuda.bilinear_batched_f64(p64, g64)
+    assert out.shape == (2, 5) and out.dtype == torch.float64
+    assert interp_cuda.LAUNCHES == before
+
+
 def test_bilinear_f64_rejects_oversized_grid_as_jax_does():
     pts = np.zeros((1, 4, 2))
     grids = np.zeros((1, 512, 256))

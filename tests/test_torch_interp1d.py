@@ -410,3 +410,90 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     pt.lerp1d_binned(q, f, 0.0, 1.0)
     table(q)
     assert i1.LAUNCHES == before
+
+
+# ------------------------------------------------ K5's bodies and tables
+
+H100_OPTIN = 232448       # an H100's opt-in shared memory per block
+
+
+def test_interp1d_body_at_its_limits():
+    """K5's direct body by (n, m, optin): the largest table that fits an
+    H100's shared memory (12672 nodes, 65536 buckets: 101376 + 131072
+    bytes), one node more, n = 2 and n = 65536; a smaller card."""
+    assert i1.shared_table_bytes(12672, 65536) == H100_OPTIN
+    assert i1.interp1d_body(12672, 65536, H100_OPTIN) == "shared"
+    assert i1.interp1d_body(12673, 65536, H100_OPTIN) == "readonly"
+    assert i1.interp1d_body(2, 128, H100_OPTIN) == "shared"
+    assert i1.interp1d_body(4096, 16384, H100_OPTIN) == "shared"
+    assert i1.interp1d_body(65536, 262144, H100_OPTIN) == "readonly"
+    # an odd node count pads the columns to 16 bytes
+    assert i1.shared_table_bytes(3, 128) == 32 + 256
+    assert i1.interp1d_body(4096, 16384, 99 * 1024) == "shared"
+    assert i1.interp1d_body(8192, 32768, 99 * 1024) == "readonly"
+    # the bucket counts make_interp1d gives these tables
+    for n, m in ((2, 128), (4096, 16384), (12672, 65536), (12673, 65536),
+                 (65536, 262144)):
+        xp = torch.arange(n, dtype=torch.float32)
+        assert i1.make_interp1d(xp, xp).m == m
+
+
+def test_sorted_body_by_batch_size():
+    assert i1.sorted_body(1) == "batch"
+    assert i1.sorted_body(4096) == "batch"       # 2M queries, 512 batches
+    assert i1.sorted_body(12288) == "batch"
+    assert i1.sorted_body(12289) == "scatter"
+    assert i1.sorted_body(19532) == "scatter"    # 10M queries, 512 batches
+
+
+@pytest.mark.parametrize("case", ["gaps_0.1", "dense_cluster", "two_nodes",
+                                  "geometric"])
+def test_interp1d_packed_tables_are_derived_from_bucket_and_nodes(case):
+    """The kernels' compact and packed tables hold the JAX prep's values:
+    columns = (xp, fp) from nodes, bucket16 = bucket as 16-bit indices,
+    seeds = (bucket, bits of the seed node's x)."""
+    xp, fp = BRACKET_CASES[case]()
+    table = i1.make_interp1d(torch.from_numpy(xp), torch.from_numpy(fp))
+    assert table.columns.shape == (2, table.n)
+    assert table.columns.dtype == torch.float32
+    assert table.columns.is_contiguous()
+    assert torch.equal(table.columns[0], table.nodes[:, 0])
+    assert torch.equal(table.columns[1], table.nodes[:, 2])
+    assert table.bucket16.dtype == torch.int16
+    assert torch.equal(table.bucket16.view(torch.uint16).long()
+                       if hasattr(torch, "uint16") else
+                       table.bucket16.long() & 0xFFFF,
+                       table.bucket.long())
+    assert table.seeds.shape == (table.m, 2)
+    assert table.seeds.dtype == torch.int32 and table.seeds.is_contiguous()
+    assert torch.equal(table.seeds[:, 0], table.bucket)
+    assert torch.equal(table.seeds[:, 1].view(torch.float32),
+                       table.nodes[table.bucket.long(), 0])
+
+
+def test_interp1d_bucket16_holds_node_indices_above_32767():
+    xp = np.arange(65536, dtype=np.float32)
+    table = i1.make_interp1d(torch.from_numpy(xp), torch.from_numpy(xp))
+    assert int(table.bucket.max()) == 65534
+    assert torch.equal(table.bucket16.long() & 0xFFFF, table.bucket.long())
+
+
+@pytest.mark.parametrize("n", [12672, 12673])
+def test_interp1d_matches_pallas_beside_the_body_limit(interpret, n):
+    """The entry against the JAX make_interp1d (interpret mode) at the
+    node counts on either side of the shared body's limit on an H100, to
+    the JAX tests' 1e-5 (tests/test_interp_pallas.py:103)."""
+    xp, fp = nonuniform(n, n, 0.1, 0.05)
+    xq = np.random.default_rng(n).uniform(-1.0, xp[-1] + 1.0, 513).astype(
+        np.float32)
+    xq[:len(EXTREME)] = EXTREME
+    table = i1.make_interp1d(torch.from_numpy(xp), torch.from_numpy(fp))
+    assert table.m == 65536
+    got = table(torch.from_numpy(xq)).numpy()
+    want = np.asarray(interp_pallas.make_interp1d(
+        jnp.asarray(xp), jnp.asarray(fp))(jnp.asarray(xq)))
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[ok], np.interp(xq, xp, fp)[ok], rtol=0,
+                               atol=1e-5)

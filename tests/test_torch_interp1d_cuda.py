@@ -184,30 +184,119 @@ def dense_cluster(card):
     return torch.tensor(xp, device=card), torch.tensor(fp, device=card)
 
 
-@pytest.mark.parametrize("n, Q", [(2, 100), (129, 1000), (4096, 100003)])
-def test_interp1d_kernel_matches_plain(card, n, Q):
+def forced(monkeypatch, direct=None, sorted_=None):
+    """Make the wrapper take the given K5 bodies, as a study does by
+    replacing the body functions."""
+    if direct is not None:
+        monkeypatch.setattr(i1, "interp1d_body", lambda n, m, optin: direct)
+    if sorted_ is not None:
+        monkeypatch.setattr(i1, "sorted_body", lambda Qb: sorted_)
+
+
+def bodies_run(fn):
+    before = dict(i1.BODIES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in i1.BODIES.items()
+                 if v != before[k]}
+
+
+# (n, Q, body): n = 2, 129, 4096 (the bench's table) in both direct
+# bodies, 65536 (too large for shared memory) in the read-only one; Q not a
+# multiple of the queries a round
+K5_DIRECT = [(n, Q, body) for n, Q in ((2, 100), (129, 1000), (4096, 100003))
+             for body in ("shared", "readonly")] + [(65536, 70001, "readonly")]
+
+
+@pytest.mark.parametrize("n, Q, body", K5_DIRECT)
+def test_interp1d_kernel_matches_plain(card, monkeypatch, n, Q, body):
     xp, fp = nonuniform(card, n)
     table = pt.make_interp1d(xp, fp)
+    optin = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    natural = i1.interp1d_body(table.n, table.m, optin)
+    forced(monkeypatch, direct=body)
     q = queries(card, Q, -1.0, float(xp[-1]) + 1.0)
-    got = launched("interp1d", lambda: i1.interp1d_cuda(table, q))
+    got, ran = bodies_run(lambda: launched(
+        "interp1d", lambda: i1.interp1d_cuda(table, q)))
+    assert ran == {f"interp1d_{body}": 1}
     same(got, i1.interp1d_plain(table, q))
+    assert natural == ("readonly" if n == 65536 else "shared")
 
 
-def test_interp1d_kernel_dense_cluster(card):
+@pytest.mark.parametrize("body", ["shared", "readonly"])
+def test_interp1d_kernel_dense_cluster(card, monkeypatch, body):
     table = pt.make_interp1d(*dense_cluster(card))
+    forced(monkeypatch, direct=body)
     q = queries(card, 7777, 0.9, 1.2)
     got = launched("interp1d", lambda: i1.interp1d_cuda(table, q))
     same(got, i1.interp1d_plain(table, q))
 
 
-def test_interp1d_sorted_route_matches_plain(card):
+def test_interp1d_shared_body_at_its_largest_table(card):
+    """The largest table the shared body takes on this card, and one node
+    more, which the read-only body takes; both against the plain
+    version."""
+    optin = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    n = 16384
+    while i1.interp1d_body(n, 65536, optin) != "shared":
+        n -= 1
+    for nodes, body in ((n, "shared"), (n + 1, "readonly")):
+        xp, fp = nonuniform(card, nodes, seed=nodes)
+        table = pt.make_interp1d(xp, fp)
+        assert table.m == 65536
+        q = queries(card, 50001, -1.0, float(xp[-1]) + 1.0)
+        got, ran = bodies_run(lambda: i1.interp1d_cuda(table, q))
+        assert ran == {f"interp1d_{body}": 1}
+        same(got, i1.interp1d_plain(table, q))
+
+
+@pytest.mark.parametrize("body", ["batch", "scatter"])
+def test_interp1d_sorted_route_matches_plain(card, monkeypatch, body):
+    """262150 queries (64 batches, the last padded) through the sorted
+    mode in each of its bodies, against the direct mode and the plain
+    version."""
+    forced(monkeypatch, sorted_=body)
     xp, fp = nonuniform(card, 2048, 0.05, 0.07, seed=14)
     table = pt.make_interp1d(xp, fp)
     q = queries(card, 262150, -1.0, float(xp[-1]) + 1.0)
-    got = launched("interp1d", lambda: table(q, method="sorted"))
+    got, ran = bodies_run(lambda: launched(
+        "interp1d", lambda: table(q, method="sorted")))
+    assert ran == {f"interp1d_{body}": 1}
     same(got, launched("interp1d", lambda: table(q)))
     qs, order = i1.sort_batches(q, i1._pow2_batches(q.numel()))
     same(got, i1.interp1d_plain(table, qs, order, q.numel()))
+    same(got, i1.interp1d_plain(table, q))
+
+
+@pytest.mark.parametrize("n, Q, nb", [(2, 5001, 8), (129, 100003, 16),
+                                      (4096, 2_097_151, 512),
+                                      (65536, 70001, 4)])
+def test_interp1d_sorted_bodies_with_pads(card, n, Q, nb):
+    """The sorted mode's natural body (batch up to 12288 queries a batch,
+    scatter above) with a padded last batch, extreme queries included."""
+    xp, fp = nonuniform(card, n)
+    table = pt.make_interp1d(xp, fp)
+    q = queries(card, Q, -1.0, float(xp[-1]) + 1.0)
+    qs, order = i1.sort_batches(q, nb)
+    got, ran = bodies_run(lambda: i1.interp1d_cuda(table, qs, order, Q, nb))
+    want_body = "batch" if -(-Q // nb) <= 12288 else "scatter"
+    assert ran == {f"interp1d_{want_body}": 1}
+    same(got, i1.interp1d_plain(table, qs, order, Q))
+    same(got, i1.interp1d_plain(table, q))
+
+
+def test_interp1d_batch_body_takes_any_permutation(card, monkeypatch):
+    """The whole padded stream sorted at once: every batch holds ids of
+    other batches and writes each result straight to its id."""
+    xp, fp = nonuniform(card, 4096)
+    table = pt.make_interp1d(xp, fp)
+    Q, nb = 70001, 16
+    q = queries(card, Q, -1.0, float(xp[-1]) + 1.0)
+    qs, order = i1.sort_batches(q, nb)
+    qs, idx = torch.sort(qs)
+    order = order[idx]
+    got, ran = bodies_run(lambda: i1.interp1d_cuda(table, qs, order, Q, nb))
+    assert ran == {"interp1d_batch": 1}
     same(got, i1.interp1d_plain(table, q))
 
 
@@ -252,3 +341,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     qs, order = i1.sort_batches(q, 8)
     with pytest.raises(ValueError, match="sort_batches"):
         i1.lerp1d_sorted_cuda(qs, order.int(), fp, x0, inv_dx, 100, 8)
+    xp, fpn = nonuniform(card, 300)
+    table = pt.make_interp1d(xp, fpn)
+    with pytest.raises(TypeError):
+        i1.interp1d_cuda(table, q.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        i1.interp1d_cuda(table, q[::2])
+    with pytest.raises(ValueError, match="sort_batches"):
+        i1.interp1d_cuda(table, qs, order.int(), 100, 8)
+    with pytest.raises(ValueError, match="n_batches"):
+        i1.interp1d_cuda(table, qs, order, 100)
+    with pytest.raises(ValueError, match="n_batches"):
+        i1.interp1d_cuda(table, qs, order, 100, 3)

@@ -191,8 +191,13 @@ def host_double(pts, grids):
             + tr * tc * g[bi, r0 + 1, c0 + 1])
 
 
+# the existing shapes; the bench's f64 leg (16 x 256^2 x 16384); odd W
+# (rows off the 16-byte boundary, so a corner pair is aligned on every
+# other row); one query; Q not a multiple of the 1024 queries a block
 @pytest.mark.parametrize("B, H, W, Q", [(2, 64, 96, 701), (1, 2, 2, 3),
-                                        (3, 255, 257, 1000)])
+                                        (3, 255, 257, 1000),
+                                        (16, 256, 256, 16384),
+                                        (2, 33, 7, 5001), (5, 9, 3, 1)])
 def test_f64_kernel_matches_plain_and_host_double(card, B, H, W, Q):
     pts, grids = inputs(card, B, H, W, Q, dtype=torch.float64)
     before = ic.LAUNCHES["bilinear_f64"]
@@ -203,6 +208,59 @@ def test_f64_kernel_matches_plain_and_host_double(card, B, H, W, Q):
     assert max_diff(got, ic.f64_plain(pts, grids)) <= F64_BAR
     np.testing.assert_allclose(got.cpu().numpy(), host_double(pts, grids),
                                rtol=0, atol=F64_BAR)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_f64_kernel_with_unaligned_corner_pairs(card, offset):
+    """Grids that start 8 bytes off a 16-byte boundary (a view into a
+    larger buffer): every corner pair that is aligned in the buffer is
+    not in the grid, and the other way round."""
+    B, H, W, Q = 3, 40, 50, 3001
+    pts, grids = inputs(card, B, H, W, Q, dtype=torch.float64)
+    buf = torch.empty(B * H * W + 1, dtype=torch.float64, device=card)
+    shifted = buf[offset:offset + B * H * W].view(B, H, W)
+    shifted.copy_(grids)
+    assert shifted.data_ptr() % 16 == 8 * offset
+    got = pt.bilinear_batched_f64(pts, shifted)
+    assert max_diff(got, ic.f64_plain(pts, grids)) == 0.0
+    # integer queries: every corner at once, c0 odd and even
+    r = torch.arange(H - 1, dtype=torch.float64, device=card)
+    c = torch.arange(W - 1, dtype=torch.float64, device=card)
+    grid_pts = torch.stack(torch.meshgrid(r, c, indexing="ij"), -1).view(
+        1, -1, 2).expand(B, -1, -1).contiguous()
+    got = ic.f64_cuda(grid_pts, shifted)
+    assert max_diff(got, ic.f64_plain(grid_pts, grids)) == 0.0
+
+
+def test_f64_entry_takes_the_launch_path_only_for_what_the_kernel_takes(
+        card):
+    """The entry's one-test path: contiguous f64 on one card launches K6
+    with no cast; f32 inputs are cast and launched; every refusal of the
+    full checks stays."""
+    pts, grids = inputs(card, 2, 20, 30, 100, dtype=torch.float64)
+    before = ic.LAUNCHES["bilinear_f64"]
+    got = pt.bilinear_batched_f64(pts, grids)
+    got32 = pt.bilinear_batched_f64(pts.float(), grids.float())
+    assert ic.LAUNCHES["bilinear_f64"] == before + 2
+    assert max_diff(got, ic.f64_plain(pts, grids)) == 0.0
+    assert max_diff(got32, ic.f64_plain(pts.float().double(),
+                                        grids.float().double())) == 0.0
+    for fn in (pt.bilinear_batched_f64, ic.f64_cuda):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(pts, grids.transpose(1, 2))
+        with pytest.raises(ValueError, match="one device"):
+            fn(pts, grids.cpu())
+        with pytest.raises(ValueError, match=r"\(B, Q, 2\)"):
+            fn(pts[:1], grids)
+        with pytest.raises(ValueError, match="H >= 2"):
+            fn(pts, grids[:, :1])
+    with pytest.raises(ValueError, match="grid too large"):
+        pt.bilinear_batched_f64(pts, torch.zeros(2, 512, 256,
+                                                 dtype=torch.float64,
+                                                 device=card))
+    with pytest.raises(TypeError):
+        ic.f64_cuda(pts.float(), grids)
+    assert ic.LAUNCHES["bilinear_f64"] == before + 2
 
 
 def test_more_than_65535_grids(card):
