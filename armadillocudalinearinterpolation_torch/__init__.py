@@ -16,26 +16,36 @@ replay kernel ``csrc/replay.cu``, the frozen-schedule map and
 ``newton_solve_staged``) is the fourth; the ``Driver.cu`` program's entry
 point (``cli/driver.py``: the continuation sweep with stability,
 checkpoint/resume in the JAX package's format and stage dumps, ``utils/``)
-is the fifth.  This package never imports JAX.
+is the fifth; exact Jacobians (the tangent replay kernel K2T in
+``csrc/replay.cu``, ``F.value_and_jacobian``, ``fd_mode="exact"``) and the
+walkers that use them (``analysis/``: pseudo-arclength continuation, fold
+tracking, branch enumeration, existence-boundary tracking, and their CLI
+modes) are the sixth.  This package never imports JAX.
 """
 
 from .config import ModelConfig, MapParams, NewtonConfig
 from .model.coupling import coupling_kernel, coupling_row, mexican_hat
 from .model.lift import lift, initial_spike_indices
-from .model.events import event_time
+from .model.events import event_time, event_time_jvp
 from .model.evolve import EvolveResult, evolve_ensemble
 from .model.evolve_batched import evolve_ensemble_batched
 from .model.evolve_cuda import evolve_ensemble_cuda
 from .model.replay import (compute_schedule, replay_events,
-                           evolve_ensemble_replay)
-from .model.replay_cuda import replay_events_cuda
+                           replay_events_tangent, evolve_ensemble_replay)
+from .model.replay_cuda import (replay_events_cuda,
+                                replay_events_tangent_cuda)
 from .model.restrict import restrict_positions, masked_ensemble_mean
 from .model.emap import (
     z_to_u,
     u_to_z,
     sample_beta,
+    sample_noise,
+    beta_from_noise,
     event_driven_map,
     make_residual_fn,
+    ResidualFn,
+    map_jvp,
+    differentiable_backend,
     MapDiagnostics,
     compute_discrete_outcome,
     frozen_schedule_map,
@@ -43,8 +53,9 @@ from .model.emap import (
 )
 from .solvers.criterion import residual_norm_criterion, relative_criterion
 from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
-                             print_iteration_table, NewtonResult,
-                             frozen_jacobian_polish)
+                             exact_jacobian, print_iteration_table,
+                             NewtonResult, frozen_jacobian_polish,
+                             JacobianUnavailable)
 from .solvers.staged import newton_solve_frozen, newton_solve_staged
 from .ops.interp_cuda import bilinear_batched, bilinear_batched_f64
 from .ops.interp1d_cuda import lerp1d, lerp1d_binned, make_interp1d
@@ -56,6 +67,16 @@ from .analysis.stability import (
     count_unstable,
     num_unstable_eigenvalues,
 )
+from .analysis.continuation import (
+    ArcStep,
+    continue_branch,
+    arclength_step,
+    make_extended_residual,
+    make_arclength_step_frozen,
+)
+from .analysis.fold import FoldPoint, solve_fold, track_fold
+from .analysis.branches import Branch, enumerate_branches
+from .analysis.boundary import BoundaryPoint, track_existence_boundary
 
 __version__ = "0.1.0"
 
@@ -69,21 +90,29 @@ __all__ = [
     "lift",
     "initial_spike_indices",
     "event_time",
+    "event_time_jvp",
     "EvolveResult",
     "evolve_ensemble",
     "evolve_ensemble_batched",
     "evolve_ensemble_cuda",
     "compute_schedule",
     "replay_events",
+    "replay_events_tangent",
     "evolve_ensemble_replay",
     "replay_events_cuda",
+    "replay_events_tangent_cuda",
     "restrict_positions",
     "masked_ensemble_mean",
     "z_to_u",
     "u_to_z",
     "sample_beta",
+    "sample_noise",
+    "beta_from_noise",
     "event_driven_map",
     "make_residual_fn",
+    "ResidualFn",
+    "map_jvp",
+    "differentiable_backend",
     "MapDiagnostics",
     "compute_discrete_outcome",
     "frozen_schedule_map",
@@ -93,6 +122,8 @@ __all__ = [
     "newton_solve",
     "fd_jacobian",
     "central_fd_jacobian",
+    "exact_jacobian",
+    "JacobianUnavailable",
     "print_iteration_table",
     "NewtonResult",
     "frozen_jacobian_polish",
@@ -102,6 +133,18 @@ __all__ = [
     "compute_eigenvalues",
     "count_unstable",
     "num_unstable_eigenvalues",
+    "ArcStep",
+    "continue_branch",
+    "arclength_step",
+    "make_extended_residual",
+    "make_arclength_step_frozen",
+    "FoldPoint",
+    "solve_fold",
+    "track_fold",
+    "Branch",
+    "enumerate_branches",
+    "BoundaryPoint",
+    "track_existence_boundary",
     "bilinear_batched",
     "bilinear_batched_f64",
     "lerp1d",

@@ -21,12 +21,17 @@ instead splits its key once per completed step and fast-forwards the splits
 on resume.  A resumed sweep also restores the secant predictor's pair from
 the checkpoint, so its steps repeat the uninterrupted sweep's.
 
+The walkers (``--arclength``, ``--track-fold``, ``--enumerate-branches``,
+``--track-boundary``; :mod:`..analysis`) hold ONE noise draw for the whole
+walk, from a generator seeded with ``step_seed(seed, 0)``: the draw at
+parameter ``(beta, sigma)`` is ``beta + sigma * noise`` (common random
+numbers, as the JAX CLI's walkers keep one unsplit key).  Exact Jacobians
+(``--fd-mode exact``, ``--stage2-fd exact``) need ``--dtype float64``.
+
 Run:  python -m armadillocudalinearinterpolation_torch.cli.driver --help
 
-The JAX package's walkers (``--arclength``, ``--enumerate-branches``,
-``--track-boundary``, ``--track-fold``), ``--shard`` and the ``exact``
-Jacobian modes are not ported yet: the parser has no such flags, and the
-``exact`` modes exit 2.
+``--shard`` (the JAX package's mesh-sharded solves) is not ported: the
+parser has no such flag.
 """
 
 from __future__ import annotations
@@ -42,15 +47,14 @@ import torch
 from .. import (MapParams, ModelConfig, NewtonConfig, ProblemType,
                 compute_eigenvalues, count_unstable, event_driven_map,
                 make_residual_fn, newton_solve, sample_beta)
+from ..model.emap import beta_from_noise, sample_noise
 from ..solvers.staged import (FROZEN_MODES, newton_solve_frozen,
                               newton_solve_staged)
 from ..utils.checkpoint import ContinuationCheckpoint, ContinuationStep
 from ..utils.debug import dump_map_stages
 from ..utils.profiling import trace
 
-EXACT_MESSAGE = ("error: exact Jacobians (fd_mode 'exact') are not ported "
-                 "yet (ROADMAP.md, Queue 1 item 9); use --fd-mode forward, "
-                 "central, frozen or frozen-fwd")
+WALKERS = ("arclength", "track_fold", "track_boundary", "enumerate_branches")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,10 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
                             "frozen-fwd"],
                    default="forward",
                    help="Jacobian mode: forward or central FD on the map; "
-                        "frozen/frozen-fwd = fused residual + frozen-"
-                        "schedule FD on the fp64 replay map "
-                        "(solvers/staged.py newton_solve_frozen); exact is "
-                        "not ported yet and exits 2")
+                        "exact = the map's exact Jacobian (the fp64 tangent "
+                        "replay of the point's firing order, K2T on the "
+                        "card; needs --dtype float64); frozen/frozen-fwd = "
+                        "fused residual + frozen-schedule FD on the fp64 "
+                        "replay map (solvers/staged.py newton_solve_frozen;"
+                        " the walkers route them to the frozen bordered "
+                        "corrector)")
     p.add_argument("--evolve-backend",
                    choices=["auto", "cuda", "torch", "replay"],
                    default="auto",
@@ -122,9 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(n+1)-point replay per iteration; frozen = the "
                         "central (2n+1)-point stencil, the default under "
                         "--stability, which eigendecomposes the exported "
-                        "Jacobian; central = plain central FD on the full "
-                        "map (the default with --evolve-backend cuda or "
-                        "torch); exact is not ported yet and exits 2")
+                        "Jacobian; exact = exact Jacobians (K2T), the "
+                        "default with --evolve-backend cuda or torch; "
+                        "central = plain central FD on the full map")
     p.add_argument("--damping", type=float, default=1.0)
     p.add_argument("--quiet", action="store_true")
     # continuation (Driver.cu:86-114)
@@ -151,6 +158,45 @@ def build_parser() -> argparse.ArgumentParser:
                         "this directory (trace.json)")
     p.add_argument("--stability", action="store_true",
                    help="eigenvalue analysis at each converged point")
+    # pseudo-arclength mode (beyond the reference: rounds the folds the
+    # naive beta-stepping loop at Driver.cu:86-114 dies at)
+    p.add_argument("--arclength", action="store_true",
+                   help="pseudo-arclength continuation in (Z, beta) instead "
+                        "of naive beta stepping; tracks branches through "
+                        "folds")
+    p.add_argument("--ds", type=float, default=0.1,
+                   help="initial arclength step (adaptive)")
+    p.add_argument("--direction", type=float, default=1.0,
+                   help="+1: start toward increasing beta; -1: decreasing")
+    p.add_argument("--arc-param", choices=["beta", "sigma"], default="beta",
+                   help="arclength continuation axis: walk beta holding "
+                        "--sigma fixed, or walk sigma holding --beta fixed")
+    p.add_argument("--allow-branch-jump", action="store_true",
+                   help="disable the corrector step-distance guard: near a "
+                        "fold Newton may tunnel to a different solution "
+                        "branch (branch-discovery mode)")
+    p.add_argument("--enumerate-branches", action="store_true",
+                   help="branch-switching enumeration: walk the seed branch "
+                        "both ways (guarded), probe each branch end with "
+                        "unguarded discovery steps, and walk every new "
+                        "family found; --steps bounds each walk")
+    p.add_argument("--max-branches", type=int, default=4,
+                   help="walk budget for --enumerate-branches")
+    p.add_argument("--track-boundary", action="store_true",
+                   help="trace the wave family's existence boundary "
+                        "beta*(sigma) over --sigma-values "
+                        "(analysis/boundary.py)")
+    p.add_argument("--sigma-values", type=float, nargs="+",
+                   default=[0.0, 0.25, 0.5, 0.75, 1.0, 1.25, 1.5],
+                   help="sigma grid for --track-boundary and --track-fold, "
+                        "in walk order")
+    p.add_argument("--boundary-direction", type=float, default=1.0,
+                   help="+1: upper beta boundary; -1: lower")
+    p.add_argument("--track-fold", action="store_true",
+                   help="continue a smooth fold in two parameters over "
+                        "--sigma-values by the Moore-Spence system; "
+                        "--guess/--beta must be a near-fold point "
+                        "(analysis/fold.py; needs --dtype float64)")
     return p
 
 
@@ -196,11 +242,13 @@ def predicted_retry_needed(res) -> bool:
     return not (bool(res.converged) and np.isfinite(_host(res.solution)).all())
 
 
-def main(argv=None, *, draw: Optional[Callable] = None) -> int:
+def main(argv=None, *, draw: Optional[Callable] = None,
+         noise=None) -> int:
     """Run the CLI on ``argv``; returns the exit code.
 
     ``draw(step, params)``, if given, replaces the per-step draws of
-    :func:`step_draws` (the parity tests pass the JAX package's draws).
+    :func:`step_draws`, and ``noise`` (an ``(R, N)`` array) the walkers'
+    noise (the parity tests pass the JAX package's draws and noise).
     """
     args = build_parser().parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
@@ -209,10 +257,10 @@ def main(argv=None, *, draw: Optional[Callable] = None) -> int:
         return 2
     if args.profile:
         with trace(args.profile):
-            rc = _run(args, draw)
+            rc = _run(args, draw, noise)
         print(f"profiler trace written to {args.profile}/")
         return rc
-    return _run(args, draw)
+    return _run(args, draw, noise)
 
 
 def _error(msg: str) -> int:
@@ -220,15 +268,21 @@ def _error(msg: str) -> int:
     return 2
 
 
-def _run(args, draw: Optional[Callable] = None) -> int:
+def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
     if args.max_events is not None and args.max_events <= 0:
         raise SystemExit(f"--max-events must be positive, "
                          f"got {args.max_events}")
     if args.staged and args.dtype != "float64":
         return _error("error: --staged solves in the accurate dtype; pass "
                       "--dtype float64")
-    if "exact" in (args.fd_mode, args.stage2_fd):
-        return _error(EXACT_MESSAGE)
+    walker = next((f for f in WALKERS if getattr(args, f)), None)
+    if args.dtype != "float64" and (
+            args.fd_mode == "exact" or args.stage2_fd == "exact"
+            or args.track_fold):
+        what = ("--track-fold" if args.track_fold and args.fd_mode != "exact"
+                else "exact Jacobians")
+        return _error(f"error: {what} need the fp64 tangent replay; pass "
+                      "--dtype float64")
     if args.cpu and args.evolve_backend == "cuda":
         return _error("error: --evolve-backend cuda runs the kernel on the "
                       "card; drop --cpu (or use auto or torch)")
@@ -262,6 +316,13 @@ def _run(args, draw: Optional[Callable] = None) -> int:
     beta = args.beta
     if draw is None:
         draw = step_draws(cfg, args.seed, dev)
+    # the walkers' one noise for the whole walk
+    if walker and noise is None:
+        noise = sample_noise(cfg, torch.Generator(device=dev).manual_seed(
+            step_seed(args.seed, 0)), device=dev)
+    elif walker:
+        noise = torch.as_tensor(np.asarray(noise), dtype=cfg.torch_dtype,
+                                device=dev)
 
     ckpt = ContinuationCheckpoint(args.checkpoint) if args.checkpoint else None
     start = 0
@@ -278,7 +339,18 @@ def _run(args, draw: Optional[Callable] = None) -> int:
         if ckpt is None:
             return _error("error: --resume requires --checkpoint")
         done = ckpt.load_all()
-        if done:
+        if done and args.arclength:
+            # restart FROM the last accepted point: its 'beta' field holds
+            # the walked parameter (the walker's predictor moves it), and
+            # the walk keeps its one noise
+            last = done[-1]
+            start = last.index + 1
+            beta = last.beta
+            Z = torch.tensor(last.solution, dtype=cfg.torch_dtype,
+                             device=dev)
+            print(f"resuming arclength walk at step {start} "
+                  f"(param={beta:.4f})")
+        elif done:
             last = done[-1]
             start = last.index + 1
             beta = last.beta + args.beta_step
@@ -305,6 +377,14 @@ def _run(args, draw: Optional[Callable] = None) -> int:
             print(f"warning: {flags} ignored with --staged (the staged "
                   "recipe uses its own stage configs; see "
                   "solvers/staged.py)", file=sys.stderr)
+        if walker:
+            # the walkers dispatch before the staged solve and use their
+            # own correctors
+            print(f"warning: --staged is ignored with "
+                  f"--{walker.replace('_', '-')} (walkers use their own "
+                  "correctors; pass --fd-mode frozen for the fused "
+                  "frozen-outcome corrector on the replay map)",
+                  file=sys.stderr)
     elif args.stage2_fd is not None:
         print("warning: --stage2-fd only takes effect with --staged",
               file=sys.stderr)
@@ -329,9 +409,19 @@ def _run(args, draw: Optional[Callable] = None) -> int:
     smoke_backend = args.evolve_backend
     if (args.staged or frozen) and smoke_backend == "auto":
         smoke_backend = "replay"
-    params = MapParams.create(beta, args.sigma, dtype=args.dtype, device=dev)
+    if args.arclength and args.arc_param == "sigma":
+        # on a sigma walk the resumed value in `beta` IS the sigma; the
+        # held mean rate stays --beta
+        params = MapParams.create(args.beta, beta if start > 0
+                                  else args.sigma, dtype=args.dtype,
+                                  device=dev)
+    else:
+        params = MapParams.create(beta, args.sigma, dtype=args.dtype,
+                                  device=dev)
     t0 = time.perf_counter()
-    f0 = event_driven_map(cfg, params, draw(start, params), Z,
+    f0 = event_driven_map(cfg, params,
+                          beta_from_noise(cfg, params, noise) if walker
+                          else draw(start, params), Z,
                           evolve_backend=smoke_backend)
     print(f"ComputeF smoke test: |f| = {float(torch.linalg.vector_norm(f0)):.6e} "
           f"({time.perf_counter() - t0:.2f}s incl. kernel build)")
@@ -340,9 +430,18 @@ def _run(args, draw: Optional[Callable] = None) -> int:
         dump_map_stages(cfg, params, draw(start, params), Z, args.debug_dump)
         print(f"stage dumps written to {args.debug_dump}/")
 
+    if args.track_fold:
+        return run_fold(args, cfg, ncfg, noise, Z, beta)
+    if args.track_boundary:
+        return run_boundary(args, cfg, ncfg, noise, Z, beta)
+    if args.enumerate_branches:
+        return run_enumerate(args, cfg, ncfg, noise, Z, beta)
+    if args.arclength:
+        return run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start)
+
     if args.staged:
         # An unspecified --stage2-fd resolves to the library default
-        # (frozen-fwd on the replay; central FD on a direct evolve), EXCEPT
+        # (frozen-fwd on the replay; exact on a direct evolve), EXCEPT
         # under --stability on the replay: that eigendecomposes the
         # exported stage-2 Jacobian, where the central frozen stencil's
         # ~3e-7 accuracy (against frozen-fwd's ~3e-6) is the better grade
@@ -351,11 +450,15 @@ def _run(args, draw: Optional[Callable] = None) -> int:
         if stage2_fd is None and not direct:
             stage2_fd = "frozen" if args.stability else "frozen-fwd"
         # None defers to the library's backend-aware default; an EXPLICIT
-        # flag always builds a config
+        # flag always builds a config.  An exact stage 2 drives to the
+        # polish target itself (one more quadratic iteration beats the
+        # polish crawling from the capture range), as the library default
         stage2_ncfg = None
         if args.stage2_fd is not None or stage2_fd == "frozen":
+            exact = stage2_fd == "exact"
             stage2_ncfg = NewtonConfig(
-                tolerance=5.0 * args.tol, max_iterations=6,
+                tolerance=(0.9 if exact else 5.0) * args.tol,
+                max_iterations=8 if exact else 6,
                 fd_mode=stage2_fd,
                 fd_epsilon=1e-5 if stage2_fd == "frozen" else 1e-6)
 
@@ -444,6 +547,203 @@ def _run(args, draw: Optional[Callable] = None) -> int:
             Z_is_conv = False
         Z = res.solution
 
+    return 0
+
+
+def _walk_params(args, p: float, device) -> MapParams:
+    """The map parameters at walked value ``p`` (``--arc-param``)."""
+    if args.arc_param == "sigma":
+        return MapParams.create(args.beta, p, dtype=args.dtype,
+                                device=device)
+    return MapParams.create(p, args.sigma, dtype=args.dtype, device=device)
+
+
+def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start) -> int:
+    """Pseudo-arclength branch walk (``--arclength``)."""
+    from ..analysis.continuation import continue_branch
+
+    # on resume keep walking the same way: the secant of the last two
+    # checkpointed points (a fresh +param tangent would walk backward after
+    # a fold)
+    tangent0 = None
+    if args.resume and ckpt is not None:
+        prev = ckpt.load_all()
+        if len(prev) >= 2:
+            ya = np.concatenate([prev[-2].solution, [prev[-2].beta]])
+            yb = np.concatenate([prev[-1].solution, [prev[-1].beta]])
+            d = yb - ya
+            tangent0 = torch.as_tensor(d / np.linalg.norm(d),
+                                       dtype=cfg.torch_dtype,
+                                       device=noise.device)
+    # on a sigma walk the checkpointed 'beta' field holds the walked sigma:
+    # a resumed start value lives in `beta`, the held mean rate is --beta
+    if args.arc_param == "sigma":
+        walk_beta0 = args.beta
+        walk_sigma = beta if start > 0 else args.sigma
+    else:
+        walk_beta0, walk_sigma = beta, args.sigma
+
+    def on_step(i, step):
+        b = float(step.y[-1])
+        sol = _host(step.y[:-1])
+        # --quiet (uniform across walkers): no per-step lines; the summary,
+        # the checkpoint and the stability analysis still run
+        if not args.quiet:
+            print(f"arc step {start + i}: {args.arc_param}={b:.4f} "
+                  f"iters={int(step.iterations)} "
+                  f"|r|={float(step.residual_norm):.3e} "
+                  f"Z={np.array2string(sol, precision=5)}", flush=True)
+        n_unstable = None
+        eigenvalues = None
+        if args.stability:
+            ev = compute_eigenvalues(
+                make_residual_fn(cfg, _walk_params(args, b, noise.device),
+                                 0, device=noise.device, noise=noise,
+                                 evolve_backend=args.evolve_backend),
+                step.y[:-1], ProblemType.EQUATION_FREE, epsilon=args.fd_eps)
+            eigenvalues = np.asarray(ev)
+            n_unstable = int(count_unstable(ev, ProblemType.EQUATION_FREE))
+            if not args.quiet:
+                print(f"  -> {'unstable' if n_unstable else 'stable'} "
+                      f"({n_unstable} unstable)")
+        if ckpt is not None:
+            ckpt.save(ContinuationStep(
+                index=start + i, beta=b, solution=sol,
+                residual_norm=float(step.residual_norm),
+                converged=bool(step.converged), n_unstable=n_unstable,
+                eigenvalues=eigenvalues))
+
+    steps = continue_branch(
+        cfg, noise, Z, walk_beta0, sigma=walk_sigma, param=args.arc_param,
+        ds=args.ds, n_steps=args.steps, direction=args.direction, ncfg=ncfg,
+        evolve_backend=args.evolve_backend,
+        max_step_factor=None if args.allow_branch_jump else 4.0,
+        tangent0=tangent0, callback=on_step)
+    print(f"arclength: {len(steps)} accepted steps"
+          + ("" if len(steps) == args.steps else " (branch end reached)"))
+    return 0
+
+
+def run_fold(args, cfg, ncfg, noise, Z, beta) -> int:
+    """Two-parameter fold continuation (``--track-fold``)."""
+    import os
+
+    from ..analysis.fold import null_direction, track_fold
+
+    # the initial null direction from the exact Jacobian at the near-fold
+    # guess
+    F = make_residual_fn(cfg, MapParams.create(beta, args.sigma_values[0],
+                                               dtype=args.dtype,
+                                               device=noise.device),
+                         0, device=noise.device, noise=noise,
+                         evolve_backend=args.evolve_backend)
+    v0 = null_direction(F.value_and_jacobian(Z)[1])
+    acc = []
+
+    def save():
+        # incremental: a killed trace keeps its prefix
+        os.makedirs(args.checkpoint, exist_ok=True)
+        np.savez(os.path.join(args.checkpoint, "fold.npz"),
+                 sigma=np.array([p.sigma for p in acc]),
+                 beta=np.array([p.beta for p in acc]),
+                 Z=np.stack([p.Z for p in acc]),
+                 v=np.stack([p.v for p in acc]),
+                 residual_norm=np.array([p.residual_norm for p in acc]))
+
+    def on_point(pt):
+        if not args.quiet:
+            print(f"sigma={pt.sigma:.4f}: beta_fold = {pt.beta:.5f} "
+                  f"(c={float(pt.Z[0]):.4f}, |H|={pt.residual_norm:.2e})",
+                  flush=True)
+        acc.append(pt)
+        if args.checkpoint:
+            save()
+
+    pts = track_fold(cfg, noise, _host(Z), v0, beta, args.sigma_values,
+                     ncfg=ncfg, evolve_backend=args.evolve_backend,
+                     callback=on_point)
+    print(f"fold curve: {len(pts)}/{len(args.sigma_values)} sigma values "
+          "traced")
+    if args.checkpoint and pts:
+        print(f"fold curve written to {args.checkpoint}/fold.npz")
+    return 0
+
+
+def run_boundary(args, cfg, ncfg, noise, Z, beta) -> int:
+    """Two-parameter existence-boundary trace (``--track-boundary``)."""
+    import os
+
+    from ..analysis.boundary import track_existence_boundary
+
+    acc = []
+
+    def save():
+        os.makedirs(args.checkpoint, exist_ok=True)
+        np.savez(os.path.join(args.checkpoint, "boundary.npz"),
+                 sigma=np.array([p.sigma for p in acc]),
+                 beta_star=np.array([p.beta_star for p in acc]),
+                 beta_fail=np.array([p.beta_fail for p in acc]),
+                 fail_verified=np.array([p.fail_verified for p in acc]),
+                 Z=np.stack([p.Z for p in acc]),
+                 residual_norm=np.array([p.residual_norm for p in acc]))
+
+    def on_point(pt):
+        if not args.quiet:
+            tag = "verified" if pt.fail_verified else "UNVERIFIED"
+            print(f"sigma={pt.sigma:.4f}: beta* = {pt.beta_star:.4f} "
+                  f"(fail at {pt.beta_fail:.4f} {tag}, "
+                  f"c={float(pt.Z[0]):.4f}, |r|={pt.residual_norm:.2e})",
+                  flush=True)
+        acc.append(pt)
+        if args.checkpoint:
+            save()
+
+    pts = track_existence_boundary(
+        cfg, noise, _host(Z), beta, args.sigma_values,
+        direction=args.boundary_direction, ncfg=ncfg,
+        evolve_backend=args.evolve_backend, callback=on_point)
+    print(f"boundary: {len(pts)}/{len(args.sigma_values)} sigma values "
+          "traced")
+    if args.checkpoint and pts:
+        print(f"boundary written to {args.checkpoint}/boundary.npz")
+    return 0
+
+
+def run_enumerate(args, cfg, ncfg, noise, Z, beta) -> int:
+    """Branch-switching enumeration (``--enumerate-branches``)."""
+    import os
+
+    from ..analysis.branches import enumerate_branches
+
+    beta0, sigma = ((beta, args.sigma) if args.arc_param == "beta"
+                    else (args.beta, args.sigma))
+
+    def on_step(b, i, step):
+        print(f"branch {b} step {i}: {args.arc_param}={float(step.y[-1]):.4f}"
+              f" iters={int(step.iterations)}"
+              f" |r|={float(step.residual_norm):.3e}"
+              f" Z={np.array2string(_host(step.y[:-1]), precision=5)}",
+              flush=True)
+
+    branches = enumerate_branches(
+        cfg, noise, _host(Z), beta0, sigma=sigma, param=args.arc_param,
+        ds=args.ds, n_steps=args.steps, ncfg=ncfg,
+        evolve_backend=args.evolve_backend, max_branches=args.max_branches,
+        callback=None if args.quiet else on_step)
+
+    for b, br in enumerate(branches):
+        end = "step limit" if br.hit_step_limit else "branch end"
+        p, c = br.points[:, -1], br.points[:, 0]
+        print(f"branch {b} [{br.origin}]: {len(br.points)} points, "
+              f"{args.arc_param} in [{p.min():.4f}, {p.max():.4f}], "
+              f"c in [{c.min():.4f}, {c.max():.4f}] ({end})")
+        if args.checkpoint:
+            os.makedirs(args.checkpoint, exist_ok=True)
+            np.savez(os.path.join(args.checkpoint, f"branch_{b}.npz"),
+                     points=br.points, origin=br.origin,
+                     hit_step_limit=br.hit_step_limit)
+    if args.checkpoint:
+        print(f"branches written to {args.checkpoint}/branch_*.npz")
     return 0
 
 

@@ -75,8 +75,10 @@ __device__ T event_time(T v, T s, T b, const Consts& c) {
 // Classify event (j, t_new) to the nearest tracked trajectory (lowest id on
 // ties) and record it as its last firing before T or its first after T,
 // unless that trajectory has crossed already.  One thread, shared memory.
+// Returns the trajectory it recorded (the first after T where t_new > T),
+// or -1.
 template <typename T>
-__device__ __forceinline__ void classify_event(int j, T t_new, T t_horizon,
+__device__ __forceinline__ int classify_event(int j, T t_new, T t_horizon,
                                                int M, int* last_ind,
                                                T* last_time, int* crossed_ind,
                                                T* crossed_time, int* crossed) {
@@ -97,7 +99,9 @@ __device__ __forceinline__ void classify_event(int j, T t_new, T t_horizon,
       last_time[mm] = t_new;
       last_ind[mm] = j;
     }
+    return mm;
   }
+  return -1;
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where a launch needs

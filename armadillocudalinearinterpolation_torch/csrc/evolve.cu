@@ -227,7 +227,7 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
                               const T* __restrict__ s0,
                               const int* __restrict__ init_ind,
                               const T* __restrict__ beta, int R, int N, int M,
-                              int W, int pad_b, Consts c,
+                              int W, int pad_b, int beta_per_row, Consts c,
                               int* __restrict__ last_ind_out,
                               T* __restrict__ last_time_out,
                               int* __restrict__ crossed_ind_out,
@@ -264,7 +264,7 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
   for (int i = tid; i < N; i += nthr) {
     row.v[i] = v0[(size_t)p * N + i];
     row.s[i] = s0[(size_t)p * N + i];
-    row.b[i] = beta[(size_t)r * N + i];
+    row.b[i] = beta[(size_t)(beta_per_row ? row_id : r) * N + i];
   }
   for (int d = tid; d <= N / 2; d += nthr) row.w[d] = kick_weight<T>(d, c);
   const T T_h = T(c.t_horizon), two_T = T(2) * T(c.t_horizon);
@@ -355,8 +355,8 @@ int launch(const void* v0, const void* s0, const void* init_ind,
            const void* beta, void* last_ind, void* last_time,
            void* crossed_ind, void* crossed_time, void* accept,
            void* n_events, void* sched, void* row_scratch, void* fallbacks,
-           int P, int R, int N, int M, int E, int W, int pad_b, int threads,
-           const Consts& c, void* stream) {
+           int P, int R, int N, int M, int E, int W, int pad_b,
+           int beta_per_row, int threads, const Consts& c, void* stream) {
   if (P < 1 || R < 1 || N < 1 || M < 1 || (sched != nullptr && E < 1) ||
       W < 0 || W >= N || pad_b < 0 || pad_b >= N || threads < 32 ||
       threads > 1024 || threads % 32)
@@ -371,7 +371,7 @@ int launch(const void* v0, const void* s0, const void* init_ind,
   kernel<<<(unsigned)rows, threads, shmem, (cudaStream_t)stream>>>(
       static_cast<const T*>(v0), static_cast<const T*>(s0),
       static_cast<const int*>(init_ind), static_cast<const T*>(beta), R, N,
-      M, W, pad_b, c, static_cast<int*>(last_ind),
+      M, W, pad_b, beta_per_row, c, static_cast<int*>(last_ind),
       static_cast<T*>(last_time), static_cast<int*>(crossed_ind),
       static_cast<T*>(crossed_time), static_cast<bool*>(accept),
       static_cast<int*>(n_events), static_cast<int*>(sched), E,
@@ -385,15 +385,17 @@ int launch(const void* v0, const void* s0, const void* init_ind,
 // 1) values of device memory for the rows.  W = 0: every lane; else the
 // certified window of W lanes, anchored pad_b lanes before the row's
 // lowest tracked index.  fallbacks: NULL, or P*R ints, each row's count of
-// windowed events that fell back to every lane.  threads: the CTA's
-// threads, a multiple of 32 up to 1024.
+// windowed events that fell back to every lane.  beta_per_row: 0 = beta is
+// (R, N), shared by the P points; 1 = (P*R, N), one row of rates per row.
+// threads: the CTA's threads, a multiple of 32 up to 1024.
 #define ATORCH_EVOLVE(NAME, T)                                                \
   extern "C" int NAME(const void* v0, const void* s0, const void* init_ind,   \
                       const void* beta, void* last_ind, void* last_time,      \
                       void* crossed_ind, void* crossed_time, void* accept,    \
                       void* n_events, void* sched, void* row_scratch,         \
                       void* fallbacks, int P, int R, int N, int M, int E,     \
-                      int W, int pad_b, int threads, int counter_max,         \
+                      int W, int pad_b, int beta_per_row, int threads,        \
+                      int counter_max,                                        \
                       double vth, double drive, double gap,                   \
                       double a1, double a2, double b1, double b2, double dx,  \
                       double t_horizon, double root_tol, void* stream) {      \
@@ -402,7 +404,7 @@ int launch(const void* v0, const void* s0, const void* init_ind,
     return launch<T>(v0, s0, init_ind, beta, last_ind, last_time,             \
                      crossed_ind, crossed_time, accept, n_events, sched,      \
                      row_scratch, fallbacks, P, R, N, M, E, W, pad_b,         \
-                     threads, c, stream);                                     \
+                     beta_per_row, threads, c, stream);                       \
   }
 
 ATORCH_EVOLVE(atorch_evolve_f32, float)

@@ -17,6 +17,20 @@ f32 discovery pass, then the fp64 replay of its firing order,
 that discrete outcome: :func:`compute_discrete_outcome` returns it at one
 point, and :func:`frozen_schedule_map_batched` evaluates the smooth piece
 around it at a whole stencil of points in one replay.
+
+Exact Jacobians (:func:`map_jvp`, ``F.value_and_jacobian``): the map's
+smooth piece at a point is differentiated forward, with no finite
+differences: the lift's tangents by ``torch.func`` over the plain lift,
+the evolve's by the tangent replay (K2T on the card,
+:func:`.replay.replay_events_tangent` on the CPU) of the point's own
+firing order (the fp64 evolve's log on a direct backend, the f32
+discovery's on ``"replay"``), and the restriction's by ``torch.func.jvp``.
+
+Points with their own parameters: where ``params.beta`` and
+``params.sigma`` are ``(P,)`` tensors (one per point of a stack), the draw
+is ``(P * R, N)``, ``params.beta[p] + params.sigma[p] * noise[r]`` from one
+``(R, N)`` ``noise`` (common random numbers), and every evolve row has its
+own rates.
 """
 
 from __future__ import annotations
@@ -30,8 +44,10 @@ from .evolve import EvolveResult
 from .evolve_batched import evolve_ensemble_batched
 from .evolve_cuda import evolve_ensemble_cuda
 from .lift import initial_spike_indices, lift
-from .replay import compute_schedule, evolve_ensemble_replay, select_replay
+from .replay import (compute_schedule, evolve_ensemble_replay,
+                     schedule_width, select_replay, select_replay_tangent)
 from .restrict import masked_ensemble_mean, restrict_positions
+from ..solvers.newton import JacobianUnavailable
 
 EVOLVE_BACKENDS = ("auto", "cuda", "torch", "replay")
 
@@ -60,17 +76,65 @@ def u_to_z(U: torch.Tensor) -> torch.Tensor:
     return torch.cat([U[..., :1], U[..., 2:]], dim=-1)
 
 
+def sample_noise(cfg: ModelConfig, generator: torch.Generator, *,
+                 device=None) -> torch.Tensor:
+    """The ``(n_real, n_neurons)`` standard normal noise of a draw, from
+    ``generator`` on ``device`` (the generator's own device by default)."""
+    device = generator.device if device is None else torch.device(device)
+    return torch.randn((cfg.n_real, cfg.n_neurons), generator=generator,
+                       dtype=cfg.torch_dtype, device=device)
+
+
+def beta_from_noise(cfg: ModelConfig, params: MapParams,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """The draw ``mean + sigma * noise``: ``(R, N)`` for one parameter
+    point, ``(P * R, N)`` (row ``p * R + r``) where ``params`` holds
+    ``(P,)`` tensors."""
+    dt_, dev = cfg.torch_dtype, noise.device
+    mean = params.beta.to(dtype=dt_, device=dev)
+    sigma = params.sigma.to(dtype=dt_, device=dev)
+    if mean.ndim == 0 and sigma.ndim == 0:
+        return mean + sigma * noise
+    P = max(mean.numel(), sigma.numel())
+    draw = (mean.reshape(-1, 1, 1) + sigma.reshape(-1, 1, 1) * noise[None])
+    return draw.expand(P, *noise.shape).reshape(-1, noise.shape[1])
+
+
 def sample_beta(cfg: ModelConfig, params: MapParams,
                 generator: torch.Generator, *, device=None) -> torch.Tensor:
     """Heterogeneous synaptic rates ``beta = mean + sigma * N(0, 1)``, shape
     ``(n_real, n_neurons)``, drawn from ``generator`` on ``device`` (the
     generator's own device by default)."""
-    device = generator.device if device is None else torch.device(device)
-    noise = torch.randn((cfg.n_real, cfg.n_neurons), generator=generator,
-                        dtype=cfg.torch_dtype, device=device)
-    mean = params.beta.to(dtype=cfg.torch_dtype, device=device)
-    sigma = params.sigma.to(dtype=cfg.torch_dtype, device=device)
-    return mean + sigma * noise
+    return beta_from_noise(cfg, params, sample_noise(cfg, generator,
+                                                     device=device))
+
+
+def point_params(params: MapParams, P: int) -> MapParams:
+    """``params`` as the lift broadcasts them over a stack of ``P`` points:
+    0-dim tensors as they are, ``(P,)`` tensors as ``(P, 1)``."""
+    if params.beta.ndim == 0 and params.sigma.ndim == 0:
+        return params
+    return MapParams(beta=params.beta.reshape(-1, 1).expand(P, 1),
+                     sigma=params.sigma.reshape(-1, 1).expand(P, 1))
+
+
+def differentiable_backend(evolve_backend: str) -> str:
+    """The backend an exact Jacobian differentiates for ``evolve_backend``
+    (the JAX package's ``emap.py:89-100``, where the Pallas evolve has no
+    JVP).  Every backend of the port differentiates: a direct one
+    (``"auto"``, ``"cuda"``, ``"torch"``) by the tangent replay of the fp64
+    evolve's own firing order, ``"replay"`` by that of its f32 discovery
+    pass; so the name is validated (:func:`check_backend`) and returned as
+    it is."""
+    check_backend(evolve_backend)
+    return evolve_backend
+
+
+def check_backend(evolve_backend: str) -> None:
+    """Refuse a name that is not one of ``EVOLVE_BACKENDS``."""
+    if evolve_backend not in EVOLVE_BACKENDS:
+        raise ValueError(f"unknown evolve_backend: {evolve_backend!r} "
+                         f"(expected one of {EVOLVE_BACKENDS})")
 
 
 def select_evolve(evolve_backend: str, device: torch.device) -> Callable:
@@ -83,9 +147,7 @@ def select_evolve(evolve_backend: str, device: torch.device) -> Callable:
     (:func:`.evolve_batched.evolve_ensemble_batched`) both run the
     certified window of ``cfg.evolve_window`` lanes, or every lane where it
     is 0."""
-    if evolve_backend not in EVOLVE_BACKENDS:
-        raise ValueError(f"unknown evolve_backend: {evolve_backend!r} "
-                         f"(expected one of {EVOLVE_BACKENDS})")
+    check_backend(evolve_backend)
     if evolve_backend == "replay":
         return evolve_ensemble_replay
     if evolve_backend == "cuda" or (evolve_backend == "auto"
@@ -101,15 +163,16 @@ def run_pipeline(cfg: ModelConfig, params: MapParams, Z: torch.Tensor,
 
     Returns ``(U, init_ind, v0, s0, evolve_result, positions)`` with
     leading ``P`` axes; the evolve result and positions cover ``P * R``
-    rows.
+    rows.  ``beta`` is ``(R, N)``, or ``(P * R, N)`` for points with their
+    own parameters (``params`` of ``(P,)`` tensors).
     """
     Z = Z.to(dtype=cfg.torch_dtype, device=beta.device)
     U = z_to_u(Z)
     init_ind = initial_spike_indices(cfg, Z)
-    v0, s0 = lift(cfg, params, U)
+    v0, s0 = lift(cfg, point_params(params, Z.shape[0]), U)
     evolve = select_evolve(evolve_backend, beta.device)
-    res = evolve(cfg, v0.contiguous(), s0.contiguous(), beta,
-                 init_ind.contiguous())
+    res = evolve(cfg, v0.contiguous(), s0.contiguous(), beta.contiguous(),
+                 init_ind.contiguous(), n_real=cfg.n_real)
     return U, init_ind, v0, s0, res, restrict_positions(cfg, res)
 
 
@@ -129,6 +192,9 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
     Args:
       beta: ``(n_real, n_neurons)`` heterogeneity draw (:func:`sample_beta`);
         it fixes the device and takes the place of the JAX package's key.
+        For a stack whose points have their own parameters (``params`` of
+        ``(P,)`` tensors) the ``(P * n_real, n_neurons)`` draw of
+        :func:`beta_from_noise`.
       Z: ``(n_spikes,)`` reduced state ``(c, z_1, ..)``, or a ``(P,
         n_spikes)`` stack evaluated in one evolve launch.
       with_diagnostics: also return :class:`MapDiagnostics`.
@@ -141,11 +207,14 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
     Z = torch.as_tensor(Z)
     single = Z.ndim == 1
     Zs = Z[None, :] if single else Z
-    if beta.shape != (cfg.n_real, cfg.n_neurons) or beta.dtype != cfg.torch_dtype:
-        raise ValueError(f"beta must be ({cfg.n_real}, {cfg.n_neurons}) "
-                         f"{cfg.torch_dtype}; got {tuple(beta.shape)} "
-                         f"{beta.dtype}")
     P, R, M = Zs.shape[0], cfg.n_real, cfg.n_spikes
+    if (beta.ndim != 2 or beta.shape[0] not in (R, P * R)
+            or beta.shape[1] != cfg.n_neurons
+            or beta.dtype != cfg.torch_dtype):
+        raise ValueError(f"beta must be ({R}, {cfg.n_neurons}) "
+                         f"{cfg.torch_dtype} (or ({P * R}, {cfg.n_neurons}) "
+                         f"for points with their own parameters); got "
+                         f"{tuple(beta.shape)} {beta.dtype}")
     U, init_ind, v0, s0, res, positions = run_pipeline(
         cfg, params, Zs, beta, evolve_backend=evolve_backend)
     positions = positions.reshape(P, R, M)
@@ -182,7 +251,10 @@ def compute_discrete_outcome(cfg: ModelConfig, params: MapParams,
 def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
                                 beta: torch.Tensor, Zs: torch.Tensor,
                                 sched: torch.Tensor, n_sched: torch.Tensor,
-                                init_ind: torch.Tensor) -> torch.Tensor:
+                                init_ind: torch.Tensor, *,
+                                noise: Optional[torch.Tensor] = None,
+                                params_batched: bool = False
+                                ) -> torch.Tensor:
     """The smooth piece of ``F`` around one frozen discrete outcome, at a
     ``(P, n_spikes)`` stack of points, in ONE replay of ``P * R`` rows.
 
@@ -192,15 +264,25 @@ def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
     across grid cells).  At the point the outcome was discovered at, this
     is ``event_driven_map(..., evolve_backend="replay")``.
 
+    ``params_batched=True``: ``params`` holds ``(P,)`` tensors, one
+    parameter point per point (the bordered correctors walk a parameter),
+    and the draws are made from the ``(R, N)`` ``noise`` (``beta`` is then
+    unused and may be None): one replay of ``P * R`` rows, each with its
+    own rates.
+
     Returns:
       ``(P, n_spikes)`` residuals.
     """
     P, R, M = Zs.shape[0], cfg.n_real, cfg.n_spikes
+    if params_batched:
+        if noise is None:
+            raise ValueError("params_batched needs the draw's noise")
+        beta = beta_from_noise(cfg, params, noise)
     U = z_to_u(Zs.to(dtype=cfg.torch_dtype, device=beta.device))
-    v0, s0 = lift(cfg, params, U)
+    v0, s0 = lift(cfg, point_params(params, P), U)
     replay = select_replay(beta.device)
     res = replay(cfg, sched, n_sched, v0.contiguous(), s0.contiguous(),
-                 beta, init_ind)
+                 beta.contiguous(), init_ind, n_real=R)
     positions = restrict_positions(cfg, res).reshape(P, R, M)
     u_mean, _ = masked_ensemble_mean(positions, res.accept.reshape(P, R))
     return assemble_residual(cfg, U, u_mean)
@@ -215,29 +297,265 @@ def frozen_schedule_map(cfg: ModelConfig, params: MapParams,
                                        n_sched, init_ind)[0]
 
 
+def direct_schedule(cfg: ModelConfig, evolve: Callable, v0, s0, beta,
+                    init_ind):
+    """The direct evolve with its firing-order log: ``(result, schedule)``,
+    the log wide enough for every row's events (a row past
+    :func:`.replay.schedule_width` columns is run again with a wider log,
+    so that no row of the direct map is rejected by the replay of its
+    own log)."""
+    E = schedule_width(cfg)
+    res, sched = evolve(cfg, v0, s0, beta, init_ind, record_schedule=E,
+                        n_real=cfg.n_real)
+    need = int(res.n_events.max()) if res.n_events.numel() else 0
+    if need > E:
+        res, sched = evolve(cfg, v0, s0, beta, init_ind,
+                            record_schedule=-(-need // 128) * 128,
+                            n_real=cfg.n_real)
+    return res, sched
+
+
+def _restrict_residual(cfg: ModelConfig, res: EvolveResult, P: int):
+    """``(last_time, crossed_time, U) -> (P, n_spikes)`` residual on the
+    discrete outcome of ``res`` (indices and accept held fixed): the
+    function whose ``torch.func.jvp`` is the restriction's tangent."""
+    R, M = cfg.n_real, cfg.n_spikes
+    accept = res.accept.reshape(P, R)
+
+    def g(last_time, crossed_time, U):
+        out = EvolveResult(last_ind=res.last_ind, last_time=last_time,
+                           crossed_ind=res.crossed_ind,
+                           crossed_time=crossed_time, accept=res.accept,
+                           n_events=res.n_events)
+        positions = restrict_positions(cfg, out).reshape(P, R, M)
+        u_mean, _ = masked_ensemble_mean(positions, accept)
+        return assemble_residual(cfg, U, u_mean)
+    return g
+
+
+def lift_tangents(cfg: ModelConfig, params: MapParams, Zs: torch.Tensor,
+                  dZ: torch.Tensor, dpb: torch.Tensor):
+    """The lifts of a stack ``Zs`` ``(P, n)`` and their tangents along
+    ``D`` directions: ``dZ`` ``(D, P, n)`` of the points and ``dpb``
+    ``(D, P, 1)`` of the mean rate ``params.beta`` (the lift's only
+    parameter), by ``torch.func`` over the plain lift, batched over the
+    directions.  Returns ``(U, dU, v0, s0, dv0, ds0)``, the lifts
+    ``(P, N)`` and their tangents ``(D, P, N)``."""
+    P = Zs.shape[0]
+    # the mean rate as a (P, 1) column, one per point, shared or not
+    pb = params.beta.to(dtype=Zs.dtype, device=Zs.device).reshape(
+        -1, 1).expand(P, 1)
+    sigma = params.sigma
+
+    def lift_of(u, b):
+        return lift(cfg, MapParams(beta=b, sigma=sigma), u)
+
+    U, dU = z_to_u(Zs), z_to_u(dZ)
+    v0, s0 = lift_of(U, pb)
+    dv0, ds0 = torch.func.vmap(
+        lambda du, db: torch.func.jvp(lift_of, (U, pb), (du, db))[1])(dU,
+                                                                       dpb)
+    return U, dU, v0.contiguous(), s0.contiguous(), dv0.contiguous(), \
+        ds0.contiguous()
+
+
+def rate_tangents(cfg: ModelConfig, beta: torch.Tensor,
+                  noise: Optional[torch.Tensor], dp: torch.Tensor,
+                  param: Optional[str]) -> torch.Tensor:
+    """The tangents of the draw ``beta`` (``(R, N)`` or ``(P * R, N)``)
+    along ``D`` directions of the walked parameter, ``dp`` ``(D, P)``: 1
+    along the beta axis, the frozen noise along sigma, 0 without a
+    parameter direction.  ``(D, rows of beta, N)`` float64."""
+    D, P = dp.shape
+    R, N = cfg.n_real, cfg.n_neurons
+    f64 = torch.float64
+    if param is None:
+        return torch.zeros(D, beta.shape[0], N, dtype=f64, device=dp.device)
+    base = (torch.ones(R, N, dtype=f64, device=dp.device)
+            if param == "beta" else noise.to(f64))
+    dbeta = dp[:, :, None, None] * base[None, None]          # (D, P, R, N)
+    return (dbeta.reshape(D, P * R, N) if beta.shape[0] != R
+            else dbeta[:, 0]).contiguous()
+
+
+def _check_same_outcome(res: EvolveResult, res_t: EvolveResult) -> None:
+    """Refuse a tangent replay whose discrete outcome differs from the
+    direct evolve's whose log it replayed: the same rows accepted and, on
+    them, the same recorded trajectory slots.  Else ``J`` would belong to
+    another smooth piece than ``F``: raise :class:`JacobianUnavailable`.
+    (The two root-finds differ: the evolve's Newton to ``root_tol``, the
+    replay's f32 seed and two fp64 polishes.  Near a solution their times
+    agree to ~1e-10; far from one, at an absurd corrector step, they may
+    part.)"""
+    slots = ((res.last_ind == res_t.last_ind)
+             & (res.crossed_ind == res_t.crossed_ind)).all(dim=1)
+    bad = (res.accept != res_t.accept) | (res.accept & ~slots)
+    if bool(bad.any()):
+        rows = torch.nonzero(bad).flatten().tolist()
+        raise JacobianUnavailable(
+            "the tangent replay of the fp64 evolve's firing order reached "
+            f"another discrete outcome on rows {rows[:8]} (accept or "
+            "recorded slots differ); its Jacobian would not be the direct "
+            "map's: take evolve_backend='replay' at this point")
+
+
+def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
+            Zs: torch.Tensor, dZ: torch.Tensor,
+            dparam: Optional[torch.Tensor] = None, *,
+            param: Optional[str] = None, evolve_backend: str = "auto",
+            beta: Optional[torch.Tensor] = None):
+    """The map at a stack of points and its derivatives along ``D``
+    directions, exact (no finite differences).
+
+    Args:
+      params: one parameter point (0-dim tensors) or one per point
+        (``(P,)`` tensors).
+      noise: the ``(R, N)`` noise of the draw (the draw is ``params.beta +
+        params.sigma * noise``); None where ``beta`` is given and no sigma
+        direction is asked for.
+      Zs: ``(P, n)`` points.
+      dZ: ``(D, P, n)`` tangents of the points.
+      dparam: ``(D, P)`` tangents of the walked parameter ``param``
+        (``"beta"``: the mean rate, entering the lift and the draw;
+        ``"sigma"``: entering the draw through the noise), or None.
+      evolve_backend: a direct backend (``"auto"``, ``"cuda"``,
+        ``"torch"``) takes the schedule from the fp64 evolve's own log and
+        ``F`` from that evolve (the direct map); ``"replay"`` takes the f32
+        discovery's log and ``F`` from the tangent replay's primal (the
+        replay map).
+      beta: the draw itself, in place of ``noise`` (no sigma direction).
+
+    Returns:
+      ``(F (P, n), JV (D, P, n))``.  Float64 configurations only: the
+      tangents are fp64 (K2T's arithmetic), and an exact Jacobian of the
+      f32 map is not offered.
+    """
+    if cfg.dtype != "float64":
+        raise ValueError("exact Jacobians need a float64 configuration "
+                         f"(cfg.dtype={cfg.dtype!r}); pass dtype='float64'")
+    if param not in (None, "beta", "sigma"):
+        raise ValueError(f"param must be None, 'beta' or 'sigma'; got "
+                         f"{param!r}")
+    check_backend(evolve_backend)
+    f64 = torch.float64
+    dev = (noise if noise is not None else beta).device
+    Zs = Zs.to(dtype=f64, device=dev)
+    P, R, D = Zs.shape[0], cfg.n_real, dZ.shape[0]
+    dZ = dZ.to(dtype=f64, device=dev)
+    dp = (torch.zeros(D, P, dtype=f64, device=dev) if dparam is None
+          else dparam.to(dtype=f64, device=dev).expand(D, P))
+    if beta is None:
+        if noise is None:
+            raise ValueError("map_jvp needs the draw's noise or the draw")
+        beta = beta_from_noise(cfg, params, noise)
+    elif param == "sigma":
+        raise ValueError("a sigma direction needs the draw's noise")
+    if param is not None and beta.shape[0] == R and P > 1:
+        beta = beta.repeat(P, 1)          # the points' rates move apart
+    beta = beta.contiguous()
+    dbeta = rate_tangents(cfg, beta, noise, dp, param)
+    U, dU, v0, s0, dv0, ds0 = lift_tangents(
+        cfg, params, Zs, dZ, dp[:, :, None] if param == "beta"
+        else torch.zeros(D, P, 1, dtype=f64, device=dev))
+    init_ind = initial_spike_indices(cfg, Zs).contiguous()
+
+    # the firing order and the tangent replay of it
+    if evolve_backend == "replay":
+        sched, n_ev = compute_schedule(cfg, v0, s0, beta, init_ind,
+                                       n_real=R)
+        res = None
+    else:
+        res, sched = direct_schedule(
+            cfg, select_evolve(evolve_backend, dev), v0, s0, beta, init_ind)
+        n_ev = res.n_events
+    tangent = select_replay_tangent(dev)
+    res_t, d_last, d_crossed = tangent(
+        cfg, sched.contiguous(), n_ev.contiguous(), v0, s0, beta, init_ind,
+        dv0, ds0, dbeta, n_real=R)
+    if res is None:
+        res = res_t
+    else:
+        _check_same_outcome(res, res_t)
+
+    # the restriction's tangent: indices and accept take none
+    g = _restrict_residual(cfg, res, P)
+    f = g(res.last_time, res.crossed_time, U)
+    jv = torch.func.vmap(lambda a, b, c: torch.func.jvp(
+        g, (res.last_time, res.crossed_time, U), (a, b, c))[1])(
+            d_last, d_crossed, dU)
+    return f, jv
+
+
+class ResidualFn:
+    """The map closed over one draw, ``F: Z -> f`` (one point ``(n,)`` or
+    a stack ``(P, n)``), with its exact Jacobian:
+    ``F.value_and_jacobian(Z, param=None)``.
+
+    Attributes: ``cfg``, ``params``, ``beta`` (the ``(R, N)`` draw),
+    ``noise`` (its ``(R, N)`` noise, or None where only the draw was
+    given) and ``evolve_backend``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: MapParams,
+                 beta: torch.Tensor, noise: Optional[torch.Tensor],
+                 evolve_backend: str):
+        self.cfg, self.params = cfg, params
+        self.beta, self.noise = beta, noise
+        self.evolve_backend = evolve_backend
+
+    def __call__(self, Z: torch.Tensor) -> torch.Tensor:
+        return event_driven_map(self.cfg, self.params, self.beta, Z,
+                                evolve_backend=self.evolve_backend)
+
+    def value_and_jacobian(self, Z: torch.Tensor,
+                           param: Optional[str] = None):
+        """``(F(Z), J)`` at one point ``(n,)``: ``J`` is ``(n, n)``, or
+        ``(n, n + 1)`` with the last column ``dF/dbeta`` (``param="beta"``)
+        or ``dF/dsigma`` (``"sigma"``); exact, by one tangent replay of
+        ``n`` (or ``n + 1``) directions (:func:`map_jvp`).  ``F`` is the
+        map's own value at ``Z`` on this backend."""
+        Z = Z.to(dtype=self.cfg.torch_dtype, device=self.beta.device)
+        n = Z.shape[0]
+        D = n + (param is not None)
+        eye = torch.eye(D, dtype=torch.float64, device=Z.device)
+        f, jv = map_jvp(self.cfg, self.params, self.noise, Z[None],
+                        eye[:, None, :n],
+                        eye[:, n:].reshape(D, 1) if param else None,
+                        param=param, evolve_backend=self.evolve_backend,
+                        beta=self.beta if self.noise is None else None)
+        return f[0], jv[:, 0, :].T
+
+
 def make_residual_fn(cfg: ModelConfig, params: MapParams,
                      seed_or_generator: Union[int, torch.Generator], *,
                      device, beta: Optional[torch.Tensor] = None,
-                     evolve_backend: str = "auto"
-                     ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Close the map over one draw into a residual oracle ``F: Z -> f``.
+                     noise: Optional[torch.Tensor] = None,
+                     evolve_backend: str = "auto") -> ResidualFn:
+    """Close the map over one draw into a residual oracle ``F: Z -> f``
+    (a :class:`ResidualFn`, which also offers the exact Jacobian).
 
-    The draw ``beta`` is made once on ``device`` (from a ``torch.Generator``
-    seeded with ``seed_or_generator``, or that generator itself) and reused
-    by every evaluation; ``beta=`` injects a given draw instead.  ``F``
-    takes one point ``(n,)`` or a stack ``(P, n)``.
+    The noise is made once on ``device`` (from a ``torch.Generator``
+    seeded with ``seed_or_generator``, or that generator itself) and the
+    draw ``params.beta + params.sigma * noise`` reused by every
+    evaluation; ``noise=`` injects a given ``(R, N)`` noise, ``beta=`` a
+    given draw (then ``dF/dsigma`` is not offered).  ``F`` takes one point
+    ``(n,)`` or a stack ``(P, n)``.
     """
     device = torch.device(device)
+    if beta is not None and noise is not None:
+        raise ValueError("pass the draw (beta=) or its noise (noise=), not "
+                         "both")
     if beta is None:
-        gen = seed_or_generator
-        if not isinstance(gen, torch.Generator):
-            gen = torch.Generator(device=device).manual_seed(int(gen))
-        beta = sample_beta(cfg, params, gen, device=device)
+        if noise is None:
+            gen = seed_or_generator
+            if not isinstance(gen, torch.Generator):
+                gen = torch.Generator(device=device).manual_seed(int(gen))
+            noise = sample_noise(cfg, gen, device=device)
+        else:
+            noise = noise.to(dtype=cfg.torch_dtype, device=device)
+        noise = noise.contiguous()
+        beta = beta_from_noise(cfg, params, noise).contiguous()
     else:
         beta = beta.to(dtype=cfg.torch_dtype, device=device).contiguous()
     select_evolve(evolve_backend, device)   # reject a bad name up front
-
-    def F(Z: torch.Tensor) -> torch.Tensor:
-        return event_driven_map(cfg, params, beta, Z,
-                                evolve_backend=evolve_backend)
-    return F
+    return ResidualFn(cfg, params, beta, noise, evolve_backend)

@@ -48,14 +48,29 @@ class EvolveResult(NamedTuple):
     n_events: torch.Tensor      # (rows,) int32 event count
 
 
-def check_evolve_inputs(cfg: ModelConfig, v0, s0, beta, init_ind) -> None:
+def beta_rows(beta: torch.Tensor, P: int, n_real=None):
+    """``(R, per_row)`` of a draw ``beta`` for ``P`` points: ``R =
+    n_real`` (``beta.shape[0]`` if it is None), and whether ``beta`` is
+    ``(P * R, N)``, one row of rates per evolve row (points with their own
+    parameters), rather than ``(R, N)`` shared by the points."""
+    R = beta.shape[0] if n_real is None else int(n_real)
+    if R < 1 or beta.shape[0] not in (R, P * R):
+        raise ValueError(f"beta must have {R} or {P * R} rows (n_real="
+                         f"{R}, P={P}); got {beta.shape[0]}")
+    return R, beta.shape[0] != R
+
+
+def check_evolve_inputs(cfg: ModelConfig, v0, s0, beta, init_ind,
+                        n_real=None) -> None:
     """Shapes, dtypes and devices shared by both evolve versions."""
     N, M = cfg.n_neurons, cfg.n_spikes
     if v0.ndim != 2 or v0.shape[1] != N or s0.shape != v0.shape:
         raise ValueError(f"v0 and s0 must both be (P, {N}); got "
                          f"{tuple(v0.shape)} and {tuple(s0.shape)}")
     if beta.ndim != 2 or beta.shape[1] != N:
-        raise ValueError(f"beta must be (R, {N}); got {tuple(beta.shape)}")
+        raise ValueError(f"beta must be (R, {N}) or (P * R, {N}); got "
+                         f"{tuple(beta.shape)}")
+    beta_rows(beta, v0.shape[0], n_real)
     if tuple(init_ind.shape) != (v0.shape[0], M):
         raise ValueError(f"init_ind must be ({v0.shape[0]}, {M}); got "
                          f"{tuple(init_ind.shape)}")
@@ -79,14 +94,16 @@ def select_full(cfg: ModelConfig, v: torch.Tensor, s: torch.Tensor,
 
 def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
                     beta: torch.Tensor, init_ind: torch.Tensor,
-                    record_schedule: int = 0
+                    record_schedule: int = 0, *, n_real=None
                     ) -> Union[EvolveResult,
                                Tuple[EvolveResult, torch.Tensor]]:
     """Ensemble evolve of ``P`` points x ``R`` realisations.
 
     Args:
       v0, s0: ``(P, N)`` lifted states, one per point.
-      beta: ``(R, N)`` per-realisation synaptic rates (shared by all points).
+      beta: ``(R, N)`` per-realisation synaptic rates (shared by all
+        points), or ``(P * R, N)``, one row per evolve row, with
+        ``n_real=R``.
       init_ind: ``(P, M)`` int32 initial spike indices, one row per point.
       record_schedule: ``E > 0`` also returns the ``(P * R, E)`` int32
         firing-order log.
@@ -98,24 +115,25 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
     """
     return event_loop(cfg, v0, s0, beta, init_ind, record_schedule,
                       lambda v, s, b, last_ind, live: select_full(cfg, v, s,
-                                                                  b))
+                                                                  b),
+                      n_real=n_real)
 
 
 def event_loop(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
                beta: torch.Tensor, init_ind: torch.Tensor,
-               record_schedule: int, select: Callable):
+               record_schedule: int, select: Callable, n_real=None):
     """The loop of :func:`evolve_ensemble`, whose event selection is
     ``select(v, s, b, last_ind, live) -> (dt (rows, 1), j (rows,) int32)``
     on the ``(rows, N)`` states, the ``(rows, M)`` tracked indices and the
     ``(rows,)`` live mask."""
-    check_evolve_inputs(cfg, v0, s0, beta, init_ind)
+    check_evolve_inputs(cfg, v0, s0, beta, init_ind, n_real)
     E = int(record_schedule)
     dt_, dev = v0.dtype, v0.device
     P, N = v0.shape
-    R, M = beta.shape[0], cfg.n_spikes
+    (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
     rows = P * R
     T = cfg.t_horizon
-    b = beta.repeat(P, 1)                                    # (rows, N)
+    b = beta if per_row else beta.repeat(P, 1)               # (rows, N)
     v = v0.repeat_interleave(R, dim=0)
     s = s0.repeat_interleave(R, dim=0)
     t = torch.zeros(rows, dtype=dt_, device=dev)

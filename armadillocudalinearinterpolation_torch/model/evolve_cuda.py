@@ -23,7 +23,7 @@ import torch
 
 from .. import _build
 from ..config import ModelConfig
-from .evolve import EvolveResult, check_evolve_inputs
+from .evolve import EvolveResult, beta_rows, check_evolve_inputs
 from .evolve_batched import window_pad
 
 LAUNCHES = 0
@@ -36,27 +36,33 @@ _ENTRY = {torch.float32: "atorch_evolve_f32",
 SHARED_OPTIN_BYTES = 232_448
 
 
-def row_elems(N: int) -> int:
+def row_elems(N: int, kind: str = "evolve") -> int:
     """Values of one row's state: ``v``, ``s``, ``beta`` (``N`` each) and
-    the kick table (``N // 2 + 1``)."""
-    return 3 * N + N // 2 + 1
+    the kick table (``N // 2 + 1``); for ``kind="tangent"`` (K2T) also the
+    tangents ``dv``, ``ds`` and ``dbeta``."""
+    return (6 if kind == "tangent" else 3) * N + N // 2 + 1
 
 
 def row_shared_bytes(N: int, M: int, dtype: torch.dtype, kind: str) -> int:
     """Dynamic shared memory of one CTA that keeps its row in shared
     memory, counting every array of ``smem_bytes`` in ``csrc/evolve.cu``
     (``kind="evolve"``, values of ``dtype``) or ``csrc/replay.cu``
-    (``kind="replay"``, always float64): the row and kick table, the
+    (``kind="replay"``, always float64) or its tangent kernel
+    (``kind="tangent"``, float64): the row and kick table, the
     per-trajectory times, indices and flags, and the scalars (the evolve's
     also three 32-slot tables for its block reduction; the replay's the
-    two-slot mailbox of its events)."""
+    two-slot mailbox of its events; the tangent kernel's also the time
+    tangents and the mailbox's d(dt) slots)."""
     if kind == "evolve":
         item = torch.empty((), dtype=dtype).element_size()
         return (row_elems(N) + 2 * M + 32 + 32 + 4) * item \
             + (3 * M + 32 + 4) * 4
     if kind == "replay":
         return (row_elems(N) + 2 * M + 2) * 8 + (3 * M + 2) * 4
-    raise ValueError(f"kind must be 'evolve' or 'replay'; got {kind!r}")
+    if kind == "tangent":
+        return (row_elems(N, kind) + 4 * M + 4) * 8 + (3 * M + 2) * 4
+    raise ValueError(f"kind must be 'evolve', 'replay' or 'tangent'; got "
+                     f"{kind!r}")
 
 
 def default_threads(N: int, rows: int, sms: int, dtype: torch.dtype) -> int:
@@ -92,14 +98,15 @@ def shared_optin_bytes(dev: torch.device) -> int:
 def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
                          s0: torch.Tensor, beta: torch.Tensor,
                          init_ind: torch.Tensor, record_schedule: int = 0,
-                         *, fallbacks: Optional[torch.Tensor] = None
-                         ) -> Union[EvolveResult,
+                         *, fallbacks: Optional[torch.Tensor] = None,
+                         n_real=None) -> Union[EvolveResult,
                                     Tuple[EvolveResult, torch.Tensor]]:
     """Ensemble evolve of ``P`` points x ``R`` realisations on the card.
 
     Args:
       v0, s0: ``(P, N)`` lifted states.
-      beta: ``(R, N)`` per-realisation rates.
+      beta: ``(R, N)`` per-realisation rates, or ``(P * R, N)`` (one row
+        per evolve row) with ``n_real=R``.
       init_ind: ``(P, M)`` int32 initial spike indices.
       record_schedule: ``E > 0`` also returns the ``(P * R, E)`` int32
         firing-order log.
@@ -113,7 +120,7 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
       ``(result, schedule)``.
     """
     global LAUNCHES
-    check_evolve_inputs(cfg, v0, s0, beta, init_ind)
+    check_evolve_inputs(cfg, v0, s0, beta, init_ind, n_real)
     E = int(record_schedule)
     if E < 0:
         raise ValueError(f"record_schedule must be >= 0; got {E}")
@@ -125,7 +132,7 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     P, N = v0.shape
-    R, M = beta.shape[0], cfg.n_spikes
+    (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
     dev, dt_ = v0.device, v0.dtype
     if fallbacks is not None and (fallbacks.shape != (P * R,)
                                   or fallbacks.dtype != torch.int32
@@ -157,7 +164,7 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
             sched.data_ptr() if E else None,
             None if scratch is None else scratch.data_ptr(),
             None if fallbacks is None else fallbacks.data_ptr(),
-            P, R, N, M, E, W, window_pad(W) if W else 0,
+            P, R, N, M, E, W, window_pad(W) if W else 0, int(per_row),
             default_threads(N, P * R, torch.cuda.get_device_properties(
                 dev).multi_processor_count, dt_),
             cfg.counter_max, cfg.vth, cfg.drive, cfg.vth - cfg.drive, cfg.a1,

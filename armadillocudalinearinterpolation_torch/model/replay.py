@@ -48,8 +48,8 @@ import torch
 
 from ..config import ModelConfig
 from .coupling import mexican_hat
-from .events import event_time, membrane_dfun
-from .evolve import EvolveResult
+from .events import event_time, event_time_jvp, membrane_dfun
+from .evolve import EvolveResult, beta_rows
 from .evolve_batched import evolve_ensemble_batched
 from .evolve_cuda import evolve_ensemble_cuda
 
@@ -88,15 +88,17 @@ def kick_table(cfg: ModelConfig, device=None) -> torch.Tensor:
 
 
 def check_replay_inputs(cfg: ModelConfig, sched, n_sched, v0, s0, beta,
-                        init_ind) -> None:
+                        init_ind, n_real=None) -> None:
     """Shapes, dtypes and devices shared by both replay versions."""
     N, M = cfg.n_neurons, cfg.n_spikes
     if v0.ndim != 2 or v0.shape[1] != N or s0.shape != v0.shape:
         raise ValueError(f"v0 and s0 must both be (P, {N}); got "
                          f"{tuple(v0.shape)} and {tuple(s0.shape)}")
     if beta.ndim != 2 or beta.shape[1] != N:
-        raise ValueError(f"beta must be (R, {N}); got {tuple(beta.shape)}")
-    P, R = v0.shape[0], beta.shape[0]
+        raise ValueError(f"beta must be (R, {N}) or (P * R, {N}); got "
+                         f"{tuple(beta.shape)}")
+    P = v0.shape[0]
+    R, _ = beta_rows(beta, P, n_real)
     if sched.ndim != 2 or sched.shape[0] not in (R, P * R) \
             or sched.shape[1] < 1:
         raise ValueError(f"sched must be ({R}, E) or ({P * R}, E) with E >= "
@@ -121,6 +123,27 @@ def check_replay_inputs(cfg: ModelConfig, sched, n_sched, v0, s0, beta,
                          "on one device")
 
 
+def check_tangent_inputs(cfg: ModelConfig, v0, beta, dv0, ds0, dbeta,
+                         n_real=None) -> int:
+    """Shapes of the tangent replay's directions; returns ``D``."""
+    P, N = v0.shape
+    R, per_row = beta_rows(beta, P, n_real)
+    if dv0.ndim != 3 or dv0.shape[1:] != (P, N) or ds0.shape != dv0.shape:
+        raise ValueError(f"dv0 and ds0 must both be (D, {P}, {N}); got "
+                         f"{tuple(dv0.shape)} and {tuple(ds0.shape)}")
+    D = dv0.shape[0]
+    if tuple(dbeta.shape) != (D, beta.shape[0], N):
+        raise ValueError(f"dbeta must be ({D}, {beta.shape[0]}, {N}), as "
+                         f"beta; got {tuple(dbeta.shape)}")
+    if D < 1:
+        raise ValueError("the tangent replay needs at least one direction")
+    for name, x in (("dv0", dv0), ("ds0", ds0), ("dbeta", dbeta)):
+        if x.dtype != torch.float64 or x.device != v0.device:
+            raise TypeError(f"{name} must be float64 on {v0.device}; got "
+                            f"{x.dtype} on {x.device}")
+    return D
+
+
 def _membrane_shared(t, v, s, b, cfg: ModelConfig):
     """Residual ``v(t) - vth`` in the shared-exponential form
     ``v e_t + I (1 - e_t) + s (e_b - e_t) / (1 - b) - vth``, ``e_t =
@@ -131,35 +154,21 @@ def _membrane_shared(t, v, s, b, cfg: ModelConfig):
             - cfg.vth)
 
 
-def replay_events(cfg: ModelConfig, sched: torch.Tensor,
-                  n_sched: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
-                  beta: torch.Tensor, init_ind: torch.Tensor) -> EvolveResult:
-    """Replay a recorded firing order in fp64 (plain version of K2).
-
-    Args:
-      sched: ``(R, E)`` or ``(P * R, E)`` int32 firing-order log.
-      n_sched: its int32 event counts, one per schedule row.
-      v0, s0: ``(P, N)`` lifted states, float32 or float64.
-      beta: ``(R, N)`` rates, in the dtype of ``v0``.
-      init_ind: ``(M,)`` or ``(P, M)`` int32 initial spike indices.
-
-    Returns:
-      :class:`EvolveResult` over ``P * R`` rows, times in ``v0.dtype``
-      (f32 inputs are evolved in fp64 and rounded at the end);
-      ``n_events`` is ``n_sched`` per row and ``accept`` also requires the
-      row to be consistent (see the module docstring).  A row stops at
-      ``min(n_sched, E)`` events or once all its trajectories have crossed.
-    """
-    check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind)
+def _replay(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
+            n_real, tangents):
+    """The replay loop of :func:`replay_events` and, with ``tangents =
+    (dv0, ds0, dbeta)``, of :func:`replay_events_tangent`: the primal
+    lines are the same either way.  Returns ``(result, d_last, d_crossed)``
+    (the tangents None without ``tangents``)."""
     f64, dev, out_dt = torch.float64, v0.device, v0.dtype
     P, N = v0.shape
-    R, M = beta.shape[0], cfg.n_spikes
+    (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
     rows, E = P * R, sched.shape[1]
     T = cfg.t_horizon
     cfg32 = schedule_config(cfg)
     v = v0.to(f64).repeat_interleave(R, dim=0)
     s = s0.to(f64).repeat_interleave(R, dim=0)
-    b = beta.to(f64).repeat(P, 1)
+    b = beta.to(f64) if per_row else beta.to(f64).repeat(P, 1)
     sch = sched.repeat(rows // sched.shape[0], 1)
     ns = n_sched.repeat(rows // sched.shape[0])
     ii = init_ind.reshape(-1, M)
@@ -175,6 +184,16 @@ def replay_events(cfg: ModelConfig, sched: torch.Tensor,
     wtab = kick_table(cfg, dev)
     lane = torch.arange(N, device=dev)[None, :]
     traj = torch.arange(M, device=dev)[None, :]
+    if tangents is not None:
+        dv0, ds0, dbeta = tangents
+        D = dv0.shape[0]
+        dv = dv0.repeat_interleave(R, dim=1)                 # (D, rows, N)
+        ds = ds0.repeat_interleave(R, dim=1)
+        db = dbeta if per_row else dbeta.repeat(1, P, 1)
+        tt = torch.zeros(D, rows, dtype=f64, device=dev)
+        one = torch.ones((), dtype=f64, device=dev)
+        d_last = torch.zeros(D, rows, M, dtype=f64, device=dev)
+        d_crossed = torch.zeros(D, rows, M, dtype=f64, device=dev)
 
     for k in range(int(n_live.max()) if rows else 0):
         j = sch[:, k]
@@ -207,10 +226,33 @@ def replay_events(cfg: ModelConfig, sched: torch.Tensor,
         v_new = v * e_t + cfg.drive * (1.0 - e_t) + s * (e_b - e_t) / (1.0 - b)
         v_new = torch.where(lane == jj, 0.0, v_new)
         d = torch.abs(lane - jj)
-        s_new = s * e_b + b * wtab[torch.minimum(d, N - d)]
+        w = wtab[torch.minimum(d, N - d)]
+        s_new = s * e_b + b * w
         t_new = t + dt
 
         livec = live[:, None]
+        if tangents is not None:
+            # d(dt) by the implicit function theorem at the polished root
+            # (0 for a misfire, whose dt is pinned), then the advance's
+            # partials in v, s, b and dt; the reset lane's v has tangent 0
+            ddt = torch.where(misfire, 0.0, event_time_jvp(
+                vj, sj, bj, *(torch.gather(x, 2, jj[None].expand(D, -1, -1))
+                              [..., 0] for x in (dv, ds, db)),
+                cfg, root=dt, form="shared")[1])              # (D, rows)
+            ddtc = ddt[..., None]
+            inv = one / (1.0 - b)
+            q = (e_b - e_t) * inv
+            de_t = -e_t * ddtc
+            de_b = -e_b * (db * dtc + b * ddtc)
+            dq = ((de_b - de_t) + q * db) * inv
+            dv_new = (dv * e_t + v * de_t - cfg.drive * de_t + ds * q
+                      + s * dq)
+            dv_new = torch.where(lane == jj, 0.0, dv_new)
+            ds_new = ds * e_b + s * de_b + db * w
+            dv = torch.where(livec, dv_new, dv)
+            ds = torch.where(livec, ds_new, ds)
+            tt_new = tt + ddt
+            tt = torch.where(live, tt_new, tt)
         v = torch.where(livec, v_new, v)
         s = torch.where(livec, s_new, s)
         t = torch.where(live, t_new, t)
@@ -228,12 +270,85 @@ def replay_events(cfg: ModelConfig, sched: torch.Tensor,
         crossed_ind = torch.where(is_cross, jc, crossed_ind)
         crossed_time = torch.where(is_cross, tc, crossed_time)
         crossed = crossed | is_cross
+        if tangents is not None:
+            d_last = torch.where(is_last, tt_new[..., None], d_last)
+            d_crossed = torch.where(is_cross, tt_new[..., None], d_crossed)
 
-    return EvolveResult(last_ind=last_ind, last_time=last_time.to(out_dt),
-                        crossed_ind=crossed_ind,
-                        crossed_time=crossed_time.to(out_dt),
-                        accept=crossed.all(dim=1) & consistent,
-                        n_events=ns.clone())
+    accept = crossed.all(dim=1) & consistent
+    result = EvolveResult(last_ind=last_ind, last_time=last_time.to(out_dt),
+                          crossed_ind=crossed_ind,
+                          crossed_time=crossed_time.to(out_dt),
+                          accept=accept, n_events=ns.clone())
+    if tangents is None:
+        return result, None, None
+    # a rejected row's times enter no mean: its tangents are 0
+    keep = accept[None, :, None]
+    return (result, torch.where(keep, d_last, 0.0),
+            torch.where(keep, d_crossed, 0.0))
+
+
+def replay_events(cfg: ModelConfig, sched: torch.Tensor,
+                  n_sched: torch.Tensor, v0: torch.Tensor, s0: torch.Tensor,
+                  beta: torch.Tensor, init_ind: torch.Tensor, *,
+                  n_real=None) -> EvolveResult:
+    """Replay a recorded firing order in fp64 (plain version of K2).
+
+    Args:
+      sched: ``(R, E)`` or ``(P * R, E)`` int32 firing-order log.
+      n_sched: its int32 event counts, one per schedule row.
+      v0, s0: ``(P, N)`` lifted states, float32 or float64.
+      beta: ``(R, N)`` rates, in the dtype of ``v0``; or ``(P * R, N)``,
+        one row per replay row (points with their own parameters), with
+        ``n_real=R``.
+      init_ind: ``(M,)`` or ``(P, M)`` int32 initial spike indices.
+
+    Returns:
+      :class:`EvolveResult` over ``P * R`` rows, times in ``v0.dtype``
+      (f32 inputs are evolved in fp64 and rounded at the end);
+      ``n_events`` is ``n_sched`` per row and ``accept`` also requires the
+      row to be consistent (see the module docstring).  A row stops at
+      ``min(n_sched, E)`` events or once all its trajectories have crossed.
+    """
+    check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real)
+    return _replay(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real,
+                   None)[0]
+
+
+def replay_events_tangent(cfg: ModelConfig, sched: torch.Tensor,
+                          n_sched: torch.Tensor, v0: torch.Tensor,
+                          s0: torch.Tensor, beta: torch.Tensor,
+                          init_ind: torch.Tensor, dv0: torch.Tensor,
+                          ds0: torch.Tensor, dbeta: torch.Tensor, *,
+                          n_real=None):
+    """:func:`replay_events` with ``D`` forward tangents (plain version of
+    K2T): the exact derivative of the replay's smooth piece on its frozen
+    schedule.
+
+    The replay is run as :func:`replay_events` runs it (its primal
+    outputs are equal bit for bit) while ``D`` tangents of ``(v, s, t)``
+    ride along: per event ``d(dt)`` by
+    :func:`.events.event_time_jvp` (the root-find's shared-exponential
+    form, at the polished root; 0 for a misfire), the closed-form
+    advance's partials in ``v``, ``s``, ``b`` and ``dt``, 0 on the reset
+    lane, ``db * w(d)`` from the kick, and ``t``'s tangent summing
+    ``d(dt)``.  The tangents of ``last_time`` and ``crossed_time`` are
+    taken where the times are recorded; a rejected row's are 0.
+
+    Args:
+      dv0, ds0: ``(D, P, N)`` float64 tangents of the lifts.
+      dbeta: ``(D, R, N)`` or ``(D, P * R, N)`` float64 tangents of the
+        rates, as ``beta`` is laid out: 0 along a ``Z`` direction, 1 along
+        the beta axis, the frozen noise along the sigma axis.
+      The rest as :func:`replay_events` takes them.
+
+    Returns:
+      ``(result, d_last_time, d_crossed_time)``: the
+      :class:`EvolveResult` and two ``(D, P * R, M)`` float64 tensors.
+    """
+    check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real)
+    check_tangent_inputs(cfg, v0, beta, dv0, ds0, dbeta, n_real)
+    return _replay(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real,
+                   (dv0, ds0, dbeta))
 
 
 def select_replay(device: torch.device):
@@ -245,8 +360,18 @@ def select_replay(device: torch.device):
     return replay_events
 
 
+def select_replay_tangent(device: torch.device):
+    """The tangent replay for tensors on ``device``: K2T on a CUDA device
+    (it launches or raises), the plain version elsewhere."""
+    if device.type == "cuda":
+        from .replay_cuda import replay_events_tangent_cuda
+        return replay_events_tangent_cuda
+    return replay_events_tangent
+
+
 def compute_schedule(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
-                     beta: torch.Tensor, init_ind: torch.Tensor):
+                     beta: torch.Tensor, init_ind: torch.Tensor, *,
+                     n_real=None):
     """The f32 discovery pass: ``(schedule, n_events)`` of ``P * R`` rows.
 
     Inputs as :func:`.evolve.evolve_ensemble` takes them (``(P, N)``
@@ -256,23 +381,26 @@ def compute_schedule(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
     plain evolve otherwise.  The
     log is :func:`schedule_width` columns wide, int32, in lane indices;
     ``n_events`` counts the pass's events up to its (later) horizon.
+    ``beta`` may be ``(P * R, N)`` with ``n_real=R``.
     """
     cfg32 = discovery_config(cfg)
     v32, s32, b32 = (x.to(torch.float32).contiguous() for x in (v0, s0, beta))
     evolve = (evolve_ensemble_cuda if v0.device.type == "cuda"
               else evolve_ensemble_batched)
     res32, sched = evolve(cfg32, v32, s32, b32, init_ind.contiguous(),
-                          record_schedule=schedule_width(cfg))
+                          record_schedule=schedule_width(cfg), n_real=n_real)
     return sched, res32.n_events
 
 
 def evolve_ensemble_replay(cfg: ModelConfig, v0: torch.Tensor,
                            s0: torch.Tensor, beta: torch.Tensor,
-                           init_ind: torch.Tensor) -> EvolveResult:
+                           init_ind: torch.Tensor, *,
+                           n_real=None) -> EvolveResult:
     """Two-pass evolve, a drop-in for :func:`.evolve.evolve_ensemble`:
     the f32 discovery pass, then the fp64 replay of each row's own
     schedule (K1 with its log and K2 on the card)."""
-    sched, n_ev = compute_schedule(cfg, v0, s0, beta, init_ind)
+    sched, n_ev = compute_schedule(cfg, v0, s0, beta, init_ind,
+                                   n_real=n_real)
     replay = select_replay(v0.device)
     return replay(cfg, sched, n_ev, v0.contiguous(), s0.contiguous(),
-                  beta.contiguous(), init_ind.contiguous())
+                  beta.contiguous(), init_ind.contiguous(), n_real=n_real)

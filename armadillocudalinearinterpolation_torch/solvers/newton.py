@@ -1,10 +1,13 @@
-"""Damped Newton fixed-point solver with finite-difference Jacobians.
+"""Damped Newton fixed-point solver with finite-difference or exact
+Jacobians.
 
 PyTorch runs eagerly, so the iteration is a plain host loop.  The
 Jacobian's ``n`` (forward) or ``2n`` (central) perturbed evaluations go to
 the residual oracle as ONE ``(n, n)`` or ``(2n, n)`` stack, which the
 event-driven map evaluates in one evolve launch: one Newton iteration costs
-two map evaluations.
+two map evaluations.  ``fd_mode="exact"`` takes the residual's own exact
+Jacobian (``F.value_and_jacobian``, :class:`..model.emap.ResidualFn`: one
+tangent replay, K2T on the card) or the caller's ``jacobian_fn``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,30 @@ def central_fd_jacobian(F: Callable[[torch.Tensor], torch.Tensor],
     return (vals[:n] - vals[n:]).T / (2.0 * eps)
 
 
+class JacobianUnavailable(RuntimeError):
+    """An exact Jacobian that does not exist at the point asked for (the
+    map's discrete outcome there cannot be differentiated as computed):
+    :func:`newton_solve` stops at that iterate, not converged."""
+
+
+def exact_jacobian(F: Callable, x: torch.Tensor) -> torch.Tensor:
+    """The exact Jacobian of ``F`` at ``x`` (the JAX package's
+    ``jacfwd_cols``): ``F.value_and_jacobian(x)[1]``, which a residual of
+    :func:`..model.emap.make_residual_fn` offers.  A plain callable has
+    none: raise."""
+    return _value_and_jacobian(F)(x)[1]
+
+
+def _value_and_jacobian(F: Callable) -> Callable:
+    """``F.value_and_jacobian``; a plain callable has none: raise."""
+    vaj = getattr(F, "value_and_jacobian", None)
+    if vaj is None:
+        raise ValueError(
+            "fd_mode='exact' needs F.value_and_jacobian (a residual of "
+            "make_residual_fn) or a jacobian_fn; this F is a plain callable")
+    return vaj
+
+
 def _print_header(max_iterations, tolerance):
     bar = "-" * 48
     print(bar)
@@ -81,14 +108,16 @@ def print_iteration_table(result: NewtonResult, cfg: NewtonConfig) -> None:
 
 
 def _check_fd_mode(cfg: NewtonConfig) -> None:
-    if cfg.fd_mode == "exact":
-        raise NotImplementedError(
-            "fd_mode='exact' needs exact Jacobians through the evolve, "
-            "which the port does not have yet; use 'forward' or 'central'")
-    if cfg.fd_mode not in ("forward", "central"):
+    """Unknown modes fail loudly: an unrecognised ``fd_mode`` would
+    silently take the forward-FD branch, in particular ``"frozen"``, which
+    only the map-aware entry points implement."""
+    if cfg.fd_mode not in ("forward", "central", "exact"):
         raise ValueError(
             f"fd_mode {cfg.fd_mode!r} is not supported by the generic "
-            "Newton solver (use 'forward' or 'central')")
+            "Newton solver (use 'forward', 'central' or 'exact'; "
+            "'frozen'/'frozen-fwd' live in solvers.staged."
+            "newton_solve_frozen and analysis.continuation."
+            "make_arclength_step_frozen)")
 
 
 def newton_solve(
@@ -108,7 +137,9 @@ def newton_solve(
       cfg: tolerance, max_iterations, fd_epsilon, damping, print_output
         (prints the reference's table live), fd_mode and
         divergence_factor.
-      jacobian_fn: optional analytic Jacobian ``x -> (n, n)``.
+      jacobian_fn: optional analytic Jacobian ``x -> (n, n)``; with
+        ``fd_mode="exact"`` and none given, ``F.value_and_jacobian``
+        (:func:`exact_jacobian`; a plain callable raises ``ValueError``).
       criterion: convergence test on the residual norm; the absolute test at
         ``cfg.tolerance`` by default.
       jacobian0: optional warm-start Jacobian (quasi-Newton with refresh on
@@ -121,6 +152,8 @@ def newton_solve(
     test = criterion if criterion is not None else residual_norm_criterion(
         cfg.tolerance)
     _check_fd_mode(cfg)
+    if cfg.fd_mode == "exact" and jacobian_fn is None:
+        _value_and_jacobian(F)             # refuse before any evaluation
     n = x0.shape[0]
     dt_, dev = x0.dtype, x0.device
     log = cfg.print_output
@@ -128,6 +161,8 @@ def newton_solve(
     def fresh_jacobian(x, f):
         if jacobian_fn is not None:
             return jacobian_fn(x)
+        if cfg.fd_mode == "exact":
+            return exact_jacobian(F, x)
         if cfg.fd_mode == "central":
             return central_fd_jacobian(F, x, cfg.fd_epsilon)
         return fd_jacobian(F, x, f, cfg.fd_epsilon)
@@ -155,17 +190,22 @@ def newton_solve(
         if (cfg.divergence_factor != math.inf
                 and not norm <= cfg.divergence_factor * norm0):
             break
-        if jacobian0 is None:
-            jac = fresh_jacobian(x, f)
-            x, f, norm = step(jac, x, f)
-        else:
-            x_try, f_try, n_try = step(jac, x, f)
-            if n_try <= 0.9 * norm:
-                x, f, norm = x_try, f_try, n_try
-            else:
+        try:
+            if jacobian0 is None:
                 jac = fresh_jacobian(x, f)
-                stale = False
                 x, f, norm = step(jac, x, f)
+            else:
+                x_try, f_try, n_try = step(jac, x, f)
+                if n_try <= 0.9 * norm:
+                    x, f, norm = x_try, f_try, n_try
+                else:
+                    jac = fresh_jacobian(x, f)
+                    stale = False
+                    x, f, norm = step(jac, x, f)
+        except JacobianUnavailable as e:
+            if log:
+                print(f" stopped: {e}")
+            break
         it += 1
         history.append(norm)
         converged = test(norm)

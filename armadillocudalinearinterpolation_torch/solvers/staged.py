@@ -4,7 +4,11 @@ Three stages, as in the JAX package's ``solvers/staged.py``:
 
   1. **f32 stage**: :func:`.newton.newton_solve` with central FD on the
      f32 map (K1 on the card) takes the iterate to the f32 residual floor.
-  2. **Frozen-schedule stage** (:func:`newton_solve_frozen`): per
+  2. **Accurate stage**: on a direct evolve (``"cuda"``, ``"torch"``) by
+     default Newton with exact Jacobians (``fd_mode="exact"``: K1's fp64
+     log and one K2T launch an iteration) down to ``0.9 * tolerance``; on
+     the replay, by default the **frozen-schedule stage**
+     (:func:`newton_solve_frozen`): per
      iteration one f32 discovery pass fixes the discrete outcome (K1 with
      its firing-order log), and one fp64 replay of ``(n+1)`` (or
      ``(2n+1)``) points x R rows (K2) gives ``F(x)`` and an FD Jacobian of
@@ -35,7 +39,7 @@ from ..model.replay import schedule_config
 from .criterion import residual_norm_criterion
 from .linalg import solve_dense
 from .newton import (NewtonResult, _print_footer, _print_header,
-                     _print_iteration, central_fd_jacobian,
+                     _print_iteration, central_fd_jacobian, exact_jacobian,
                      frozen_jacobian_polish, newton_solve)
 
 FROZEN_MODES = ("frozen", "frozen-fwd")
@@ -228,10 +232,11 @@ def _resolve_staged(cfg: ModelConfig, tolerance: float,
     at eps 1e-3; stage 2 on the replay backend to ``"frozen-fwd"`` at eps
     1e-6, budget 6, tolerance ``5 * tolerance``.  ``"auto"`` resolves to
     ``"replay"``.  The direct evolve (``"cuda"``, ``"torch"``: the JAX
-    package's ``"xla"``) defaults to central FD on the full map with
-    tolerance ``0.9 * tolerance`` and budget 8, where the JAX package takes
-    exact Jacobians, which the port does not have yet (``"exact"``
-    raises).  A frozen mode needs the replay backend.
+    package's ``"xla"``) defaults to exact Jacobians with tolerance ``0.9 *
+    tolerance`` and budget 8, as the JAX package does: with exact
+    Jacobians one more quadratic iteration is cheaper than the polish
+    crawling from the capture range.  ``"exact"`` runs on every backend.
+    A frozen mode needs the replay backend.
     """
     if evolve_backend == "auto":
         evolve_backend = "replay"
@@ -251,8 +256,8 @@ def _resolve_staged(cfg: ModelConfig, tolerance: float,
                                        fd_mode="frozen-fwd", fd_epsilon=1e-6)
         else:
             stage2_ncfg = NewtonConfig(tolerance=stage2_tolerance,
-                                       max_iterations=8, fd_mode="central",
-                                       fd_epsilon=1e-5)
+                                       max_iterations=8, fd_mode="exact",
+                                       fd_epsilon=1e-6)
     if stage2_ncfg.fd_mode in FROZEN_MODES and evolve_backend != "replay":
         raise ValueError(
             f"stage2_ncfg.fd_mode={stage2_ncfg.fd_mode!r} runs the fp64 "
@@ -260,7 +265,7 @@ def _resolve_staged(cfg: ModelConfig, tolerance: float,
             "stage 2 would converge on the replay residual while the polish "
             "and the converged flag use the requested backend's.  Use "
             "evolve_backend='replay' with the frozen modes, or "
-            "fd_mode='central'/'forward' with this backend.")
+            "fd_mode='exact'/'central'/'forward' with this backend.")
     return cfg, cfg32, stage1_ncfg, stage2_ncfg, evolve_backend
 
 
@@ -352,7 +357,9 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
         if res.iterations == 0 and not frozen:
             # stage 2 met its tolerance at entry and exported the identity
             # placeholder: compute one real Jacobian for the polish
-            jac = central_fd_jacobian(F_acc, x2, stage2_ncfg.fd_epsilon)
+            jac = (exact_jacobian(F_acc, x2)
+                   if stage2_ncfg.fd_mode == "exact" else
+                   central_fd_jacobian(F_acc, x2, stage2_ncfg.fd_epsilon))
         pol = frozen_jacobian_polish(F_acc, x2, jac,
                                      max_iterations=polish_iterations,
                                      tolerance=0.9 * tolerance)

@@ -63,7 +63,24 @@ the rest with the card's idle share.  Then the port's CLI (``cli``,
 and a checkpoint for 3 steps, ``--resume`` for 1 (equal to an
 uninterrupted 4-step run's step 3) at the slice's FD step of 3e-4 (at
 config 5's 1e-2 the CLI stops on a non-finite step 0, recorded beside),
-and ``--staged --dtype float64`` at config 4 for 2 steps.  Every ``kernels`` entry carries its bound (bytes or
+and ``--staged --dtype float64`` at config 4 for 2 steps.  Then exact
+Jacobians at config 4 (``exact``): the tangent replay kernel (K2T) against
+its plain version at D=3 and D=4 (the beta column), 64 rows, at the guess
+and an FD point, its primal against K2's (0.0), its Jacobian against
+central FD of the frozen-schedule map (1e-5 relative), its device time,
+µs per event, registers and bound (its lane update counted from the SASS
+by ``tools/kernel_resources.py``), and ``newton_solve_staged`` on the
+direct evolve (the exact stage 2 by default) from the guess and the guess
++ 1e-3, and on the replay with an exact stage 2 beside the frozen-fwd
+default, each to 1e-8 recomputed by a fresh map.  Then the walkers
+(``walkers``) through ``cli.driver.main``: the artifact's arclength walk
+(N=512, R=4, sigma 0, f64, 70 steps with ``--stability``) against
+``artifacts/arclength_fold/`` (first three solutions to 1e-6, the end at
+beta 16.01445 to 1e-3, every accepted |r| <= 1e-9), ``--track-fold``
+(the fold at 20.3245 to 5e-3), ``--enumerate-branches`` and
+``--track-boundary`` (the bracket around 16.0144) under a wall cap, and
+three arclength steps at config 4 with the exact and the frozen corrector.
+Every ``kernels`` entry carries its bound (bytes or
 operations over the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (``library_ms``).  Each
 phase prints one JSON object; any failed check raises and the script exits
@@ -194,6 +211,37 @@ K1_EVAL_OPS, K1_ADVANCE_OPS, K1_CERT_OPS = 39, 22, 9
 # each), 7 DMUL, 8 DADD, 1 MUFU.RCP64H, 1 DSETP.  The root-find of each
 # event (one lane) is left out.
 K2_OPS_PER_LANE_EVENT = 59
+# exact: config 4's shapes; K2T against its plain version (the same fp64
+# formulas in the same order, no FMA: relative to the tangent's size) and
+# its primal against K2 (0.0); K2T's Jacobian against central FD of the
+# frozen-schedule map at eps 1e-5 (relative to |J|)
+EXACT_BARS = {"k2t_vs_plain_relative": 1e-12, "k2t_primal_vs_k2": 0.0,
+              "jacobian_vs_frozen_fd_relative": 1e-5}
+EXACT_FD_EPS = 1e-5
+K2T_SRC_LINE = "armadillocudalinearinterpolation_tpu/model/replay.py:724"
+# walkers: the artifact's arclength walk (artifacts/README.md:112-118) at
+# N=512, R=4, sigma 0, f64 from the Driver.cu fixed point; its first three
+# solutions against artifacts/arclength_fold/step_0000{0,1,2}.npz and its
+# last accepted beta against the artifact's grazing end 16.01445; the fold
+# from tests/test_fold.py's near-fold point; the boundary bracket of
+# tests/test_boundary.py:47-63; then three arclength steps at config 4
+WALK_SMALL = ["--neurons", "512", "--realisations", "4", "--sigma", "0",
+              "--dtype", "float64"]
+WALK_ROOT = ["--guess", "0.32623663", "0.71936722", "1.36899475",
+             "--beta", "13.0589"]
+WALK_BARS = {"artifact_solution": 1e-6, "artifact_end_beta": 1e-3,
+             "walk_residual": 1e-9, "fold_beta": 5e-3,
+             "boundary_beta": 0.1}
+ARTIFACT_END_BETA, FOLD_BETA, BOUNDARY_BETA = 16.01445, 20.3245, 16.0144
+# the fold system is non-smooth at the FD scale in both packages (its J v
+# rows jump across seeding and order changes); at the default root_tol
+# 1e-6 the port's exact tangents of the polished order sit ~1e-4 off the
+# JAX package's IFT tangents at loose roots and its Newton wanders from
+# this point (ROADMAP Queue 3); with converged roots both differentiate
+# one trajectory (tests/test_torch_fold.py)
+FOLD_ROOT_TOL = 1e-12
+WALKER_WALL_CAP_S = 240
+CONFIG4_ARC = {"steps": 3, "ds": 0.1, "tolerance": 1e-7}
 # repairs: more grids than one launch dimension holds, more 1-D batches,
 # and N above one CTA's shared memory (f64 evolve: 8273, replay: 8297)
 REPAIR_GRIDS = (65536, 6, 9, 5)
@@ -1828,11 +1876,13 @@ def count_fallbacks(torch, emap):
     real = emap.evolve_ensemble_cuda
     log = []
 
-    def counted(cfg, v0, s0, beta, init_ind, record_schedule=0):
-        fb = torch.zeros(v0.shape[0] * beta.shape[0], dtype=torch.int32,
+    def counted(cfg, v0, s0, beta, init_ind, record_schedule=0,
+                n_real=None):
+        R = beta.shape[0] if n_real is None else n_real
+        fb = torch.zeros(v0.shape[0] * R, dtype=torch.int32,
                          device=v0.device)
         out = real(cfg, v0, s0, beta, init_ind, record_schedule,
-                   fallbacks=fb)
+                   fallbacks=fb, n_real=n_real)
         log.append((fb, (out[0] if record_schedule else out).n_events))
         return out
 
@@ -2161,20 +2211,443 @@ def cli(pt, torch, dev, smi):
     return row
 
 
-def replay_registers() -> dict:
-    """Registers and spill bytes of each K2 variant, as
-    ``tools/kernel_resources.py`` reads them from ``nvcc -Xptxas -v`` with
-    the package's flags."""
+def resources_tool():
     spec = importlib.util.spec_from_file_location(
         "kernel_resources", ROOT / "tools" / "kernel_resources.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def replay_registers(kernel: str = "replay_kernel") -> dict:
+    """Registers and spill bytes of each variant of K2 (``kernel=
+    "replay_kernel"``) or K2T (``"replay_tangent_kernel"``), as
+    ``tools/kernel_resources.py`` reads them from ``nvcc -Xptxas -v`` with
+    the package's flags."""
     out = {}
-    for name, res in tool.source_resources(ROOT / REPLAY_SRC).items():
-        if "replay_kernel<" in name:
-            start = name.index("replay_kernel<")
+    key = kernel + "<"
+    for name, res in resources_tool().source_resources(
+            ROOT / REPLAY_SRC).items():
+        if key in name:
+            start = name.index(key)
             out[name[start:name.index(">", start) + 1]] = res
     return out
+
+
+def launch_counts():
+    """The kernels' launch counters of the map path: K1, K2 and K2T."""
+    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
+                                                              replay_cuda)
+    return {"evolve_kernel": evolve_cuda.LAUNCHES,
+            "replay_kernel": replay_cuda.LAUNCHES,
+            "replay_tangent_kernel": replay_cuda.TANGENT_LAUNCHES}
+
+
+def zero_launch_counts():
+    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
+                                                              replay_cuda)
+    evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
+    replay_cuda.TANGENT_LAUNCHES = 0
+
+
+def rel_diff(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+def exact(pt, torch, dev, smi: str):
+    """Exact Jacobians at config 4: K2T against its plain version at D=3
+    (the Z directions) and D=4 (with the beta column), 64 rows, at the
+    guess and an FD point, and its primal against K2; K2T's Jacobian
+    against central FD of the frozen-schedule map; K2T's device time,
+    bound, registers; then the main path, with the launch counts set to 0
+    just before and read just after: ``newton_solve_staged`` on the direct
+    evolve (exact stage 2 by default) from the guess and the guess + 1e-3,
+    the residual recomputed by a fresh direct map, and on the replay with
+    an exact stage 2 beside the frozen-fwd default."""
+    from armadillocudalinearinterpolation_torch.model import (
+        emap, evolve_cuda, replay_cuda)
+    from armadillocudalinearinterpolation_torch.model.replay import (
+        compute_schedule, replay_events_tangent, schedule_width)
+    from armadillocudalinearinterpolation_torch.solvers import staged as st
+    bars = EXACT_BARS
+    f64 = torch.float64
+    cfg = pt.ModelConfig(**CONFIG4)
+    N, R, E = cfg.n_neurons, cfg.n_real, schedule_width(cfg)
+    params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
+    noise = pt.sample_noise(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    beta = pt.beta_from_noise(cfg, params, noise).contiguous()
+    guess = torch.tensor(INITIAL_GUESS, dtype=f64, device=dev)
+    points = {"guess": guess,
+              "fd_point": guess + EXACT_FD_EPS * torch.eye(
+                  3, dtype=f64, device=dev)[0]}
+
+    # K2T against the plain tangent replay and against K2, per point: the
+    # plain version runs once at D=4 (its first three directions are the
+    # D=3 launch's, computed independently per direction)
+    k2t, args4 = {}, None
+    for name, z in points.items():
+        ii = pt.initial_spike_indices(cfg, z[None]).contiguous()
+        want = None
+        for D in (4, 3):
+            eye = torch.eye(D, dtype=f64, device=dev)
+            dp = (eye[:, 3:].reshape(D, 1) if D == 4
+                  else torch.zeros(D, 1, dtype=f64, device=dev))
+            param = "beta" if D == 4 else None
+            _, _, v0, s0, dv0, ds0 = emap.lift_tangents(
+                cfg, params, z[None], eye[:, None, :3], dp[:, :, None])
+            if want is None:
+                sched, n_ev = compute_schedule(cfg, v0, s0, beta, ii)
+            dbeta = emap.rate_tangents(cfg, beta, noise, dp, param)
+            args = (cfg, sched, n_ev, v0, s0, beta, ii, dv0, ds0, dbeta)
+            k_ms, got = cuda_ms(
+                lambda: replay_cuda.replay_events_tangent_cuda(*args), torch)
+            k2 = replay_cuda.replay_events_cuda(cfg, sched, n_ev, v0, s0,
+                                                beta, ii)
+            primal = all(torch.equal(getattr(got[0], f), getattr(k2, f))
+                         for f in k2._fields)
+            entry = {"kernel_ms_first_call": k_ms, "primal_equals_k2":
+                     primal, "accepted": int(got[0].accept.sum())}
+            if want is None:
+                p_ms, want = cuda_ms(lambda: replay_events_tangent(*args),
+                                     torch)
+                entry["plain_ms"] = p_ms
+                plain_primal = all(torch.equal(getattr(got[0], f),
+                                               getattr(want[0], f))
+                                   for f in k2._fields)
+                entry["primal_equals_plain"] = plain_primal
+                require(plain_primal, f"exact: K2T {name} D=4 primal "
+                        "differs from the plain tangent replay")
+                if name == "guess":
+                    args4, plain4_ms = args, p_ms
+            entry["tangent_rel_diff"] = max(
+                rel_diff(got[1], want[1][:D]), rel_diff(got[2], want[2][:D]))
+            entry["tangent_max_abs_diff"] = max(
+                float((got[1] - want[1][:D]).abs().max()),
+                float((got[2] - want[2][:D]).abs().max()))
+            k2t[f"{name}_D{D}"] = entry
+            require(primal, f"exact: K2T {name} D={D} primal differs from "
+                    "K2's")
+            require(entry["tangent_rel_diff"]
+                    <= bars["k2t_vs_plain_relative"],
+                    f"exact: K2T {name} D={D} tangents "
+                    f"{entry['tangent_rel_diff']}")
+
+    # K2T's Jacobian (the replay map's, beta column included) against
+    # central FD of the frozen-schedule map on the same discovered order
+    F_rep = pt.make_residual_fn(cfg, params, 0, device=dev, noise=noise,
+                                evolve_backend="replay")
+    _, J = F_rep.value_and_jacobian(guess, param="beta")
+    outcome = pt.compute_discrete_outcome(cfg, params, beta, guess)
+    e = EXACT_FD_EPS * torch.eye(3, dtype=f64, device=dev)
+    vals = pt.frozen_schedule_map_batched(
+        cfg, params, beta, torch.cat([guess + e, guess - e]), *outcome)
+    pb = torch.tensor([BETA + EXACT_FD_EPS, BETA - EXACT_FD_EPS], dtype=f64,
+                      device=dev)
+    vb = pt.frozen_schedule_map_batched(
+        cfg, pt.MapParams(beta=pb, sigma=torch.full_like(pb, SIGMA)), None,
+        guess[None].repeat(2, 1), *outcome, noise=noise, params_batched=True)
+    J_fd = torch.cat([(vals[:3] - vals[3:]).T, (vb[0] - vb[1])[:, None]],
+                     dim=1) / (2 * EXACT_FD_EPS)
+    j_rel = float((J - J_fd).abs().max() / J.abs().max())
+    require(j_rel <= bars["jacobian_vs_frozen_fd_relative"],
+            f"exact: K2T's Jacobian vs frozen central FD {j_rel}")
+
+    # K2T's time: CUDA events (median of 5), the profiler's device time,
+    # K2's beside it on the same inputs, µs per event
+    n_ev4 = args4[2]
+    events = int(torch.clamp(n_ev4, max=E).sum())
+    events_per_row = events / R
+    k2t_ms = statistics.median(cuda_ms(
+        lambda: replay_cuda.replay_events_tangent_cuda(*args4), torch)[0]
+        for _ in range(5))
+    k2t3_args = (*args4[:7], *(x[:3].contiguous() for x in args4[7:]))
+    k2t3_ms = statistics.median(cuda_ms(
+        lambda: replay_cuda.replay_events_tangent_cuda(*k2t3_args),
+        torch)[0] for _ in range(5))
+    k2_args = args4[:7]
+    k2_ms = statistics.median(cuda_ms(
+        lambda: replay_cuda.replay_events_cuda(*k2_args), torch)[0]
+        for _ in range(5))
+    _, per = device_us(lambda: replay_cuda.replay_events_tangent_cuda(
+        *args4), torch, n=3)
+    k2t_us = next((v for k, v in per.items()
+                   if "replay_tangent_kernel" in k), None)
+    _, per = device_us(lambda: replay_cuda.replay_events_cuda(*k2_args),
+                       torch, n=3)
+    k2_us = next((v for k, v in per.items() if "replay_kernel" in k
+                  and "tangent" not in k), None)
+    # the function's operations a lane and event: the primal advance once
+    # (K2's probe) and one tangent a direction (K2T's probe less K2's),
+    # though each of K2T's CTAs repeats the primal
+    lane = resources_tool().lane_update("tangent")
+    lane_k2 = resources_tool().lane_update("replay")
+    ops = {"primal": lane_k2["fp64_ops"],
+           "tangent_each": lane["fp64_ops"] - lane_k2["fp64_ops"],
+           "directions": int(args4[7].shape[0])}
+    ops["per_lane_event"] = ops["primal"] + ops["directions"] * ops[
+        "tangent_each"]
+    out4 = replay_cuda.replay_events_tangent_cuda(*args4)
+    b_ms, b_by = bound(nbytes(*args4[1:]) + nbytes(*out4[0], out4[1],
+                                                    out4[2]),
+                       ops["per_lane_event"] * events * N, "float64")
+    props = torch.cuda.get_device_properties(dev)
+
+    # the main path: staged solves with the launch counts set to 0 just
+    # before and read just after each
+    stages = []
+    wrapped = {}
+    for fname in ("newton_solve", "newton_solve_frozen",
+                  "frozen_jacobian_polish"):
+        def wrap(*a, _f=getattr(st, fname), _n=fname, **kw):
+            r = _f(*a, **kw)
+            stages.append((_n, r.iterations, r.residual_norm))
+            return r
+        wrapped[fname] = getattr(st, fname)
+        setattr(st, fname, wrap)
+    z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
+    exact2 = pt.NewtonConfig(tolerance=0.9 * STAGED_TOL, max_iterations=8,
+                             fd_mode="exact")
+    plan = (("direct_guess", z0, "cuda", None),
+            ("direct_warm", z0 + 1e-3, "cuda", None),
+            ("replay_exact_stage2", z0, "replay", exact2),
+            ("replay_frozen_fwd_default", z0, "replay", None))
+    solves, path_launches = {}, {}
+    try:
+        for name, z, backend, ncfg2 in plan:
+            stages.clear()
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            res = pt.newton_solve_staged(cfg, params, z, beta=beta,
+                                         tolerance=STAGED_TOL,
+                                         evolve_backend=backend,
+                                         stage2_ncfg=ncfg2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            for k, v in launches.items():
+                path_launches[k] = path_launches.get(k, 0) + v
+            f = pt.event_driven_map(cfg, params, beta, res.solution,
+                                    evolve_backend=backend)
+            solves[name] = {
+                "wall_s": wall, "converged": res.converged,
+                "iterations": res.iterations,
+                "residual_norm": res.residual_norm,
+                "recomputed_norm": float(torch.linalg.vector_norm(f)),
+                "solution": res.solution.double().cpu().tolist(),
+                "stages": [list(x) for x in stages], "launches": launches}
+    finally:
+        for fname, fn in wrapped.items():
+            setattr(st, fname, fn)
+
+    # one exact stage-2 Jacobian at the solution, split: the direct
+    # evolve's fp64 log (K1), the lift's tangents, K2T, and the rest
+    # (restriction tangents, host); and the replay backend's discovery
+    sol = torch.tensor(solves["direct_guess"]["solution"], dtype=f64,
+                       device=dev)
+    F_dir = pt.make_residual_fn(cfg, params, 0, device=dev, noise=noise,
+                                evolve_backend="cuda")
+    eye = torch.eye(3, dtype=f64, device=dev)
+    zero = torch.zeros(3, 1, 1, dtype=f64, device=dev)
+    parts = {
+        "value_and_jacobian_direct": lambda: F_dir.value_and_jacobian(sol),
+        "value_and_jacobian_replay": lambda: F_rep.value_and_jacobian(sol),
+        "lift_tangents": lambda: emap.lift_tangents(
+            cfg, params, sol[None], eye[:, None], zero)}
+    _, _, v_s, s_s, dv_s, ds_s = parts["lift_tangents"]()
+    ii_s = pt.initial_spike_indices(cfg, sol[None]).contiguous()
+    parts["fp64_log_k1"] = lambda: emap.direct_schedule(
+        cfg, evolve_cuda.evolve_ensemble_cuda, v_s, s_s, beta, ii_s)
+    res_s, sched_s = parts["fp64_log_k1"]()
+    db_s = torch.zeros(3, R, N, dtype=f64, device=dev)
+    parts["k2t_D3"] = lambda: replay_cuda.replay_events_tangent_cuda(
+        cfg, sched_s, res_s.n_events, v_s, s_s, beta, ii_s, dv_s, ds_s,
+        db_s)
+    parts["discovery_f32"] = lambda: compute_schedule(cfg, v_s, s_s, beta,
+                                                      ii_s)
+    breakdown = {k: statistics.median(cuda_ms(fn, torch)[0]
+                                      for _ in range(5))
+                 for k, fn in parts.items()}
+    breakdown["rest_direct"] = breakdown["value_and_jacobian_direct"] - (
+        breakdown["fp64_log_k1"] + breakdown["lift_tangents"]
+        + breakdown["k2t_D3"])
+
+    entry = {
+        "name": "replay_tangent_kernel", "route": "cuda",
+        "source": REPLAY_SRC, "replaces": K2T_SRC_LINE,
+        "launches": path_launches["replay_tangent_kernel"],
+        "max_abs_err": max(v["tangent_max_abs_diff"] for v in k2t.values()),
+        "ms": k2t_ms, "plain_ms": plain4_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "device_us": k2t_us,
+        "shape": f"config 4: {R} rows x N={N}, D=4 directions (256 CTAs)",
+        "ms_D3": k2t3_ms, "k2_ms_same_inputs": k2_ms,
+        "k2_device_us_same_inputs": k2_us,
+        "us_per_event": None if k2t_us is None else k2t_us / events_per_row,
+        "events_per_row_mean": events_per_row,
+        "threads": replay_cuda.replay_layout(
+            N, cfg.n_spikes, R * 4, props.multi_processor_count,
+            evolve_cuda.shared_optin_bytes(dev),
+            props.shared_memory_per_multiprocessor, "tangent"),
+        "lane_update": lane, "bound_ops": ops,
+        "registers": replay_registers("replay_tangent_kernel")}
+    row = {"phase": "exact", "config": CONFIG4, "sigma": SIGMA,
+           "beta": BETA, "bars": bars, "k2t_vs_plain": k2t,
+           "jacobian_vs_frozen_fd_relative": j_rel,
+           "jacobian": J.cpu().tolist(), "solves": solves,
+           "exact_jacobian_ms_median_of_5": breakdown,
+           "launches": path_launches, "k2t": entry, "card": smi}
+    emit(row)
+    for name, s_ in solves.items():
+        require(s_["converged"] and s_["recomputed_norm"] <= STAGED_TOL,
+                f"exact {name}: not converged to {STAGED_TOL} "
+                f"(recomputed |F| {s_['recomputed_norm']})")
+    for name in ("direct_guess", "direct_warm", "replay_exact_stage2"):
+        require(solves[name]["launches"]["replay_tangent_kernel"] > 0,
+                f"exact {name}: K2T was not launched")
+        require(solves[name]["launches"]["evolve_kernel"] > 0,
+                f"exact {name}: K1 was not launched")
+    return entry, path_launches, solves["direct_guess"]["solution"]
+
+
+def walkers(pt, torch, dev, smi: str, z_config4):
+    """The walkers through ``cli.driver.main`` on the card, with the launch
+    counts set to 0 just before and read just after: the artifact's
+    arclength walk (first three solutions, last beta, every |r|), the fold
+    from the near-fold point, branch enumeration and the sigma = 0
+    boundary under a wall cap; then three arclength steps at config 4
+    (N=4096, R=64, sigma 0.1) from the staged solution, with the exact and
+    the frozen corrector, s/step each."""
+    import numpy as np
+    from armadillocudalinearinterpolation_torch.cli import driver
+    from armadillocudalinearinterpolation_torch.utils.checkpoint import (
+        ContinuationCheckpoint)
+    bars = WALK_BARS
+    runs = {}
+    zero_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = {k: str(Path(tmp) / k) for k in ("arc", "fold", "enum", "bnd")}
+        plan = {
+            "arclength_artifact": WALK_SMALL + WALK_ROOT + [
+                "--arclength", "--fd-mode", "exact", "--tol", "1e-9",
+                "--max-iter", "12", "--ds", "0.3", "--steps", "70",
+                "--stability", "--quiet", "--checkpoint", d["arc"]],
+            "track_fold": WALK_SMALL + [
+                "--guess", "0.59145", "0.57176", "10.07225", "--beta",
+                "20.32", "--track-fold", "--sigma-values", "0",
+                "--root-tol", str(FOLD_ROOT_TOL),
+                "--fd-mode", "central", "--fd-eps", "1e-6", "--tol", "1e-6",
+                "--max-iter", "12", "--quiet", "--checkpoint", d["fold"]],
+            "enumerate_branches": WALK_SMALL + WALK_ROOT + [
+                "--enumerate-branches", "--max-branches", "2", "--steps",
+                "3", "--ds", "0.3", "--fd-mode", "exact", "--tol", "1e-9",
+                "--max-iter", "12", "--quiet", "--checkpoint", d["enum"]],
+            "track_boundary": WALK_SMALL + WALK_ROOT + [
+                "--track-boundary", "--sigma-values", "0", "--fd-mode",
+                "exact", "--tol", "1e-9", "--max-iter", "12", "--quiet",
+                "--checkpoint", d["bnd"]]}
+        for name, argv in plan.items():
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, out = run_cli(driver, argv)
+            torch.cuda.synchronize()
+            runs[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                          "launches": {k: v - before[k] for k, v in
+                                       launch_counts().items()},
+                          "summary": [ln for ln in out.splitlines()
+                                      if not ln.startswith(("ComputeF",))]}
+        cli_launches = launch_counts()
+        arc = ContinuationCheckpoint(d["arc"]).load_all()
+        # a run that traced nothing writes no file: empty arrays, so the
+        # row below is printed before the checks fail
+        empty = {"beta": np.zeros(0), "beta_star": np.zeros(0),
+                 "beta_fail": np.zeros(0)}
+        files = {k: Path(d[k]) / f for k, f in (("fold", "fold.npz"),
+                                                 ("bnd", "boundary.npz"))}
+        fold, bnd = (dict(np.load(f)) if f.exists() else dict(empty)
+                     for f in files.values())
+        n_branches = len(list(Path(d["enum"]).glob("branch_*.npz")))
+    art = [np.load(ROOT / "artifacts" / "arclength_fold"
+                   / f"step_{i:05d}.npz")["solution"] for i in range(3)]
+    sol_diff = (max(float(np.abs(arc[i].solution - art[i]).max())
+                    for i in range(3)) if len(arc) >= 3 else math.inf)
+    end_beta = arc[-1].beta if arc else math.nan
+    worst_r = max((s.residual_norm for s in arc), default=math.inf)
+
+    # three arclength steps at config 4 from the staged solution
+    cfg4 = pt.ModelConfig(**CONFIG4)
+    noise = pt.sample_noise(cfg4, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    z4 = torch.tensor(z_config4, dtype=torch.float64, device=dev)
+    big = {}
+    for corrector, mode in (("exact", "exact"), ("frozen", "frozen")):
+        ncfg = pt.NewtonConfig(tolerance=CONFIG4_ARC["tolerance"],
+                               max_iterations=12, fd_mode=mode,
+                               fd_epsilon=1e-5)
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = pt.continue_branch(cfg4, noise, z4, BETA, sigma=SIGMA,
+                                   ds=CONFIG4_ARC["ds"],
+                                   n_steps=CONFIG4_ARC["steps"], ncfg=ncfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        big[corrector] = {
+            "accepted": len(steps), "wall_s": wall,
+            "s_per_step": wall / max(1, len(steps)),
+            "iterations": [s.iterations for s in steps],
+            "residual_norms": [s.residual_norm for s in steps],
+            "betas": [float(s.y[-1]) for s in steps],
+            "launches": {k: v - before[k] for k, v in
+                         launch_counts().items()}}
+    launches = launch_counts()
+    row = {"phase": "walkers", "bars": bars, "runs": runs,
+           "artifact_first_three_max_diff": sol_diff,
+           "artifact_walk_steps": len(arc), "artifact_end_beta": end_beta,
+           "artifact_walk_worst_residual": worst_r,
+           "fold_beta": fold["beta"].tolist(),
+           "boundary": {k: v.tolist() for k, v in bnd.items()
+                        if k != "Z"},
+           "branches": n_branches, "config4_arclength": big,
+           "launches_cli": cli_launches,
+           "launches_config4": {k: launches[k] - cli_launches[k]
+                                for k in launches}, "card": smi}
+    emit(row)
+    for name, r in runs.items():
+        require(r["rc"] == 0, f"walkers {name}: rc {r['rc']}")
+    for name in ("enumerate_branches", "track_boundary"):
+        require(runs[name]["wall_s"] <= WALKER_WALL_CAP_S,
+                f"walkers {name}: {runs[name]['wall_s']} s over the cap")
+    require(sol_diff <= bars["artifact_solution"],
+            f"walkers: the first three steps differ from the artifact by "
+            f"{sol_diff}")
+    require(abs(end_beta - ARTIFACT_END_BETA) <= bars["artifact_end_beta"],
+            f"walkers: the walk ended at beta {end_beta}")
+    require(worst_r <= bars["walk_residual"],
+            f"walkers: an accepted step had |r| {worst_r}")
+    require(len(fold["beta"]) == 1 and abs(float(fold["beta"][0])
+                                           - FOLD_BETA) <= bars["fold_beta"],
+            f"walkers: fold at {fold['beta']}")
+    require(len(bnd["beta_star"]) == 1, "walkers: no boundary point")
+    b_star, b_fail = float(bnd["beta_star"][0]), float(bnd["beta_fail"][0])
+    require(b_star <= BOUNDARY_BETA <= b_fail
+            or abs(b_star - BOUNDARY_BETA) < bars["boundary_beta"],
+            f"walkers: boundary bracket [{b_star}, {b_fail}]")
+    require(n_branches == 2, f"walkers: {n_branches} branches enumerated")
+    for corrector, r in big.items():
+        require(r["accepted"] == CONFIG4_ARC["steps"]
+                and max(r["residual_norms"]) <= CONFIG4_ARC["tolerance"],
+                f"walkers: config-4 {corrector} walk {r['accepted']} steps")
+    require(cli_launches["replay_tangent_kernel"] > 0
+            and cli_launches["evolve_kernel"] > 0,
+            f"walkers: the CLI runs launched {cli_launches}")
+    require(big["frozen"]["launches"]["replay_kernel"] > 0
+            and big["exact"]["launches"]["replay_tangent_kernel"] > 0,
+            "walkers: a config-4 corrector launched no K2 / K2T")
+    return row
 
 
 def main() -> int:
@@ -2248,16 +2721,24 @@ def main() -> int:
     replay_kernel, log = staged(pt, torch, dev, smi)
     sw = sweep(pt, torch, dev, smi)
     cl = cli(pt, torch, dev, smi)
+    tangent_kernel, ex_launches, z_config4 = exact(pt, torch, dev, smi)
+    wk = walkers(pt, torch, dev, smi, z_config4)
     # K1 runs on five paths: the Driver.cu slice (every lane), the config-3
     # map evaluation, the staged solve's f32 stage and discovery passes
     # (with its firing-order log), the config-5 sweeps and the CLI, all
     # four windowed; K2 on the staged solve and the CLI's staged run
-    full["launches"] = slice_launches
-    full["launches_by_path"] = {"slice": slice_launches}
+    # (the walkers' CLI runs are at N=512 on every lane, their config-4
+    # steps windowed)
+    full["launches_by_path"] = {
+        "slice": slice_launches,
+        "walkers": wk["launches_cli"]["evolve_kernel"]}
+    full["launches"] = sum(full["launches_by_path"].values())
     windowed["launches_by_path"] = {
         "map_eval": m["launches"], "staged": log["launches"],
         "sweep": sw["launches"],
-        "cli": cl["launches"]["evolve_kernel_windowed"]}
+        "cli": cl["launches"]["evolve_kernel_windowed"],
+        "exact": ex_launches["evolve_kernel"],
+        "walkers": wk["launches_config4"]["evolve_kernel"]}
     windowed["launches"] = sum(windowed["launches_by_path"].values())
     windowed["log"] = log
     windowed["config5"] = {
@@ -2271,12 +2752,22 @@ def main() -> int:
         *(c["max_residual_diff"] for c in sw["k1_vs_plain"]))
     replay_kernel["launches_by_path"] = {
         "staged": replay_kernel["launches"],
-        "cli": cl["launches"]["replay_kernel"]}
+        "cli": cl["launches"]["replay_kernel"],
+        "exact": ex_launches["replay_kernel"],
+        "walkers": wk["launches_cli"]["replay_kernel"]
+        + wk["launches_config4"]["replay_kernel"]}
     replay_kernel["launches"] = sum(
         replay_kernel["launches_by_path"].values())
     kernels = [full, windowed]
 
-    kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel]
+    tangent_kernel["launches_by_path"] = {
+        "exact": ex_launches["replay_tangent_kernel"],
+        "walkers": wk["launches_cli"]["replay_tangent_kernel"]
+        + wk["launches_config4"]["replay_tangent_kernel"]}
+    tangent_kernel["launches"] = sum(
+        tangent_kernel["launches_by_path"].values())
+    kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel,
+               tangent_kernel]
     missing = [k["name"] for k in kernels if k["device_us"] is None]
     require(not missing, f"no device time measured for {missing}")
     print(smi, flush=True)

@@ -31,8 +31,9 @@ CPU = ["--cpu"] + ARGS
     (CPU + ["--guess", "0.3", "0.7"], "--guess needs 3 values"),
     (CPU + ["--resume"], "--resume requires --checkpoint"),
     (["--cpu", "--staged", "--quiet"], "--dtype float64"),
-    (CPU + ["--fd-mode", "exact"], "Queue 1 item 9"),
-    (CPU + ["--staged", "--stage2-fd", "exact"], "Queue 1 item 9"),
+    (CPU + ["--fd-mode", "exact", "--dtype", "float32"], "float64"),
+    (CPU + ["--staged", "--stage2-fd", "exact", "--dtype", "float32"],
+     "float64"),
     (CPU + ["--fd-mode", "frozen", "--evolve-backend", "torch"], "replay"),
     (CPU + ["--evolve-backend", "cuda"], "card"),
 ], ids=["guess_arity", "resume_without_checkpoint", "staged_f32",
@@ -47,10 +48,10 @@ def test_cli_refusals(argv, message, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--arclength"], ["--enumerate-branches"], ["--track-boundary"],
-    ["--track-fold"], ["--shard", "2"], ["--aot-warmup"],
+    ["--shard", "2"], ["--shard", "4"], ["--aot-warmup"],
+    ["--replay-jvp", "df64"], ["--shard", "8"], ["--shard", "0"],
     ["--replay-jvp", "f32"], ["--replay-exp-mode", "small"],
-    ["--ds", "0.05"], ["--sigma-values", "0.1"]])
+    ["--replay-exp-mode", "hoisted"], ["--replay-exp-mode", "cond"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     """A flag of the JAX CLI that the port has not (or never will) is
     refused by argparse with rc 2, never silently ignored."""

@@ -129,6 +129,10 @@ def test_port_never_imports_jax():
             "import armadillocudalinearinterpolation_torch.utils.checkpoint; "
             "import armadillocudalinearinterpolation_torch.utils.debug; "
             "import armadillocudalinearinterpolation_torch.utils.profiling; "
+            "import armadillocudalinearinterpolation_torch.analysis.continuation; "
+            "import armadillocudalinearinterpolation_torch.analysis.fold; "
+            "import armadillocudalinearinterpolation_torch.analysis.branches; "
+            "import armadillocudalinearinterpolation_torch.analysis.boundary; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'armadillocudalinearinterpolation_tpu'))); "

@@ -104,8 +104,10 @@ def test_newton_matches_jax_on_a_smooth_problem(kw):
 
 
 def test_unknown_and_exact_fd_modes_raise():
+    """An unknown mode raises; exact mode raises on a plain callable (it
+    has no value_and_jacobian) and names both ways to supply one."""
     x = torch.tensor(X0)
-    with pytest.raises(NotImplementedError, match="exact"):
+    with pytest.raises(ValueError, match="exact.*value_and_jacobian"):
         pt.newton_solve(F_torch, x, pt.NewtonConfig(fd_mode="exact"))
     with pytest.raises(ValueError, match="fd_mode"):
         pt.newton_solve(F_torch, x, pt.NewtonConfig(fd_mode="frozen"))

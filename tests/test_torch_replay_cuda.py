@@ -304,9 +304,10 @@ def test_layout_beyond_the_kernel_is_refused(card, force_layout):
 
 
 def test_kernel_registers_fit_the_layout(card):
-    """Every K2 variant, as the package's flags compile it
-    (``tools/kernel_resources.py``), fits 1024 threads an SM (the budget
-    of replay_layout) in the register file."""
+    """Every K2 variant (float or double states, the row in shared or
+    device memory, the rates shared or one row per row), as the package's
+    flags compile it (``tools/kernel_resources.py``), fits 1024 threads an
+    SM (the budget of replay_layout) in the register file."""
     import importlib.util
     from pathlib import Path
     root = Path(__file__).resolve().parent.parent
@@ -317,7 +318,7 @@ def test_kernel_registers_fit_the_layout(card):
     regs = {name: r for name, r in tool.source_resources(
         _build.CSRC / "replay.cu").items()
         if "replay_kernel<" in name}
-    assert len(regs) == 4
+    assert len(regs) == 8
     for r in regs.values():
         assert 0 < r["registers"] * replay_cuda.THREADS_PER_SM <= 65_536
 

@@ -144,9 +144,8 @@ def test_frozen_newton_loop_matches_jax(case):
 def test_resolve_staged_defaults_match_jax():
     """The recipe's defaults on the replay backend equal the JAX ones;
     "auto" resolves to "replay"; a frozen mode on the direct evolve raises
-    ValueError in both packages.  On the direct evolve the JAX default
-    stage 2 is exact (not ported), the port's central FD with the same
-    tolerance and budget."""
+    ValueError in both packages.  On the direct evolve both default to
+    an exact stage 2 with the same tolerance and budget."""
     jcfg, pcfg = configs(n_neurons=512, n_real=4, root_tol=1e-6)
     for backend in ("replay", "auto"):
         got = staged._resolve_staged(pcfg, 1e-8, None, None, None, backend)
@@ -162,7 +161,7 @@ def test_resolve_staged_defaults_match_jax():
     want = jstaged._resolve_staged(jcfg, 1e-8, None, None, None, "xla")
     assert (got[3].tolerance, got[3].max_iterations) == (
         want[3].tolerance, want[3].max_iterations)
-    assert (got[3].fd_mode, want[3].fd_mode) == ("central", "exact")
+    assert (got[3].fd_mode, want[3].fd_mode) == ("exact", "exact")
     frozen = dict(tolerance=5e-7, max_iterations=6, fd_mode="frozen",
                   fd_epsilon=1e-5)
     with pytest.raises(ValueError, match="replay"):

@@ -105,10 +105,11 @@ def main(argv=None) -> int:
                                           "max": float(drift.max()),
                                           "rows": int(same.sum())}}
 
-    def f64_discovery(cfg_, v0_, s0_, beta_, ii_):
+    def f64_discovery(cfg_, v0_, s0_, beta_, ii_, n_real=None):
         res, sched = evolve_cuda.evolve_ensemble_cuda(
             cfg_, v0_.contiguous(), s0_.contiguous(), beta_.contiguous(),
-            ii_.contiguous(), record_schedule=replay.schedule_width(cfg_))
+            ii_.contiguous(), record_schedule=replay.schedule_width(cfg_),
+            n_real=n_real)
         return sched, res.n_events
 
     margin, f32_discovery = replay.DISCOVERY_MARGIN, replay.compute_schedule

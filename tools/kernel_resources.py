@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Registers and spills of every CUDA kernel of the port, and the fp64
-instructions of the replay kernel's (K2's) lane update.
+instructions of the replay kernel's (K2's) and the tangent replay kernel's
+(K2T's) lane updates.
 
     python3 tools/kernel_resources.py
 
@@ -16,8 +17,12 @@ lane takes, without the division's slow-path subroutine placed after it.
 ``fp64_ops`` counts each DFMA as two operations (its multiply and its
 add), as the card's fp64 peak counts them, and every other fp64-pipe
 instruction (DADD, DMUL, DSETP, DMNMX, MUFU.RCP64H, conversions to or from
-F64) as one: ``chip_smoke.py``'s ``K2_OPS_PER_LANE_EVENT``.  Prints one
-JSON object.
+F64) as one: ``chip_smoke.py``'s ``K2_OPS_PER_LANE_EVENT``.  A second
+probe applies ``advance_tangent`` (K2T's per-lane body: the same advance
+and one tangent direction) and is counted the same way
+(``lane_update("tangent")``): ``chip_smoke.py`` bounds K2T by the
+primal's count once and, for each direction, the difference of the two
+probes (one tangent's operations).  Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -47,6 +52,27 @@ extern "C" __global__ void atorch_lane_probe(double* v, double* s,
   s[i] = si;
 }
 """
+PROBE_TANGENT = r"""
+#include "replay.cu"
+
+extern "C" __global__ void atorch_lane_probe(double* v, double* s,
+                                             const double* b, double* dv,
+                                             double* ds, const double* db,
+                                             const double* w, int N, int j,
+                                             double dt, double ddt,
+                                             double e_t, double de,
+                                             double drive) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  double vi = v[i], si = s[i], dvi = dv[i], dsi = ds[i];
+  advance_tangent(vi, si, b[i], dvi, dsi, db[i], kick_weight(w, i, j, N),
+                  i == j, dt, ddt, e_t, de, drive);
+  v[i] = vi;
+  s[i] = si;
+  dv[i] = dvi;
+  ds[i] = dsi;
+}
+"""
+PROBES = {"replay": PROBE, "tangent": PROBE_TANGENT}
 FP64_BASES = {"DADD", "DMUL", "DFMA", "DSETP", "DSET", "DMNMX"}
 INSTRUCTION = re.compile(
     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -108,18 +134,18 @@ def source_resources(src: Path) -> dict:
             zip(entries, demangle(entries, Path(nvcc).parent))}
 
 
-def main() -> int:
+def lane_update(kind: str = "replay") -> dict:
+    """The fp64 instructions and operations of one lane's update in the
+    SASS of a probe kernel: K2's (``kind="replay"``) or K2T's
+    (``"tangent"``, one direction)."""
     sys.path.insert(0, str(ROOT))
     from armadillocudalinearinterpolation_torch import _build
     nvcc = _build.nvcc()
     cuobjdump = Path(nvcc).parent / "cuobjdump"
-    kernels = {f"{src.name}: {name}": res
-               for src in sorted(_build.CSRC.glob("*.cu"))
-               for name, res in source_resources(src).items()}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         probe = tmp / "probe.cu"
-        probe.write_text(PROBE)
+        probe.write_text(PROBES[kind])
         subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                         "-cubin", "-o", str(tmp / "probe.cubin"), str(probe)],
                        capture_output=True, text=True, check=True)
@@ -134,16 +160,25 @@ def main() -> int:
     for op in path:
         if is_fp64(op):
             fp64[op] = fp64.get(op, 0) + 1
-    print(json.dumps({
-        "kernels": kernels,
-        "k2_lane_update": {
-            "instructions_to_first_exit": len(path),
+    return {"instructions_to_first_exit": len(path),
             "instructions_in_function": len(opcodes),
             "fp64_instructions": sum(fp64.values()),
             "fp64_ops": sum(n * (2 if op.startswith("DFMA") else 1)
                             for op, n in fp64.items()),
             "fp64_by_opcode": fp64,
-            "fp64_instructions_in_function": sum(map(is_fp64, opcodes))},
+            "fp64_instructions_in_function": sum(map(is_fp64, opcodes))}
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    from armadillocudalinearinterpolation_torch import _build
+    kernels = {f"{src.name}: {name}": res
+               for src in sorted(_build.CSRC.glob("*.cu"))
+               for name, res in source_resources(src).items()}
+    print(json.dumps({
+        "kernels": kernels,
+        "k2_lane_update": lane_update("replay"),
+        "k2t_lane_update": lane_update("tangent"),
         "nvcc_flags": _build.NVCC_FLAGS}))
     return 0
 

@@ -60,9 +60,11 @@ def main() -> int:
     rows = []
     replay = replay_cuda.replay_events_cuda
 
-    def counted(cfg_, sched, n_sched, v0, s0, beta_, init_ind):
-        rows.append(v0.shape[0] * beta_.shape[0])
-        return replay(cfg_, sched, n_sched, v0, s0, beta_, init_ind)
+    def counted(cfg_, sched, n_sched, v0, s0, beta_, init_ind, **kw):
+        n_real = kw.get("n_real")
+        rows.append(v0.shape[0] * (beta_.shape[0] if n_real is None
+                                   else n_real))
+        return replay(cfg_, sched, n_sched, v0, s0, beta_, init_ind, **kw)
     replay_cuda.replay_events_cuda = counted
     try:
         with profile(activities=[ProfilerActivity.CPU,
