@@ -35,12 +35,14 @@ _L = ctypes.c_longlong
 _D = ctypes.c_double
 # argument types of every exported function
 _SIGNATURES = {
-    "atorch_evolve_f32": [_P] * 13 + [_I] * 10 + [_D] * 10 + [_P],
-    "atorch_evolve_f64": [_P] * 13 + [_I] * 10 + [_D] * 10 + [_P],
+    "atorch_evolve_f32": [_P] * 14 + [_I] * 10 + [_D] * 10 + [_P],
+    "atorch_evolve_f64": [_P] * 14 + [_I] * 10 + [_D] * 10 + [_P],
     "atorch_replay_f32": [_P] * 13 + [_I] * 10 + [_D] * 5 + [_P],
     "atorch_replay_f64": [_P] * 13 + [_I] * 10 + [_D] * 5 + [_P],
-    "atorch_replay_tangent_f32": [_P] * 18 + [_I] * 11 + [_D] * 5 + [_P],
-    "atorch_replay_tangent_f64": [_P] * 18 + [_I] * 11 + [_D] * 5 + [_P],
+    "atorch_replay_tangent_f32": [_P] * 20 + [_I] * 12 + [_D] * 5 + [_P],
+    "atorch_replay_tangent_f64": [_P] * 20 + [_I] * 12 + [_D] * 5 + [_P],
+    "atorch_replay_tangent_smem_bytes": [_I] * 5,
+    "atorch_replay_tangent_clusters": [_I] * 8 + [_P],
     "atorch_bilinear_gather": [_P] * 3 + [_I] * 7 + [_P],
     "atorch_bilinear_binning": [_P] * 5 + [_I] * 8 + [_P],
     "atorch_bilinear_binned": [_P] * 5 + [_I] * 10 + [_P],

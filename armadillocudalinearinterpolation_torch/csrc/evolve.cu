@@ -44,7 +44,10 @@
 // row's event k < E, so the log holds only the lanes the row really fired;
 // a row with more than E events keeps counting n_events and logs nothing
 // past column E - 1 (the replay rejects it through n_events > E).  The
-// wrapper zero-fills the log.
+// wrapper zero-fills the log.  Given a non-null `times` beside it (the time
+// log), the same thread writes the event's dt, as the row took it, in fp64
+// at times[row * E + k]: the exact tangent replay reads these times in
+// place of its own root-find.
 //
 // Semantics follow model/events.py, model/evolve.py and
 // model/evolve_batched.py operation by operation (the shared per-lane
@@ -235,6 +238,7 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
                               bool* __restrict__ accept_out,
                               int* __restrict__ n_events_out,
                               int* __restrict__ sched, int E,
+                              double* __restrict__ times,
                               T* __restrict__ row_scratch,
                               int* __restrict__ fallbacks_out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -315,6 +319,7 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
       // count moves
       const int k = row.iscal[kEvents];
       if (sched != nullptr && k < E) sched[(size_t)row_id * E + k] = j;
+      if (times != nullptr && k < E) times[(size_t)row_id * E + k] = dt;
       const int nev = k + 1;
       row.iscal[kEvents] = nev;
       bool all_crossed = true;
@@ -354,10 +359,12 @@ template <typename T>
 int launch(const void* v0, const void* s0, const void* init_ind,
            const void* beta, void* last_ind, void* last_time,
            void* crossed_ind, void* crossed_time, void* accept,
-           void* n_events, void* sched, void* row_scratch, void* fallbacks,
+           void* n_events, void* sched, void* times, void* row_scratch,
+           void* fallbacks,
            int P, int R, int N, int M, int E, int W, int pad_b,
            int beta_per_row, int threads, const Consts& c, void* stream) {
   if (P < 1 || R < 1 || N < 1 || M < 1 || (sched != nullptr && E < 1) ||
+      (times != nullptr && sched == nullptr) ||
       W < 0 || W >= N || pad_b < 0 || pad_b >= N || threads < 32 ||
       threads > 1024 || threads % 32)
     return (int)cudaErrorInvalidValue;
@@ -375,12 +382,14 @@ int launch(const void* v0, const void* s0, const void* init_ind,
       static_cast<T*>(last_time), static_cast<int*>(crossed_ind),
       static_cast<T*>(crossed_time), static_cast<bool*>(accept),
       static_cast<int*>(n_events), static_cast<int*>(sched), E,
-      static_cast<T*>(row_scratch), static_cast<int*>(fallbacks));
+      static_cast<double*>(times), static_cast<T*>(row_scratch),
+      static_cast<int*>(fallbacks));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// times: NULL, or P*R*E doubles beside a non-null sched (the time log).
 // row_scratch: NULL keeps each row in shared memory; else P*R*(3N + N/2 +
 // 1) values of device memory for the rows.  W = 0: every lane; else the
 // certified window of W lanes, anchored pad_b lanes before the row's
@@ -392,8 +401,9 @@ int launch(const void* v0, const void* s0, const void* init_ind,
   extern "C" int NAME(const void* v0, const void* s0, const void* init_ind,   \
                       const void* beta, void* last_ind, void* last_time,      \
                       void* crossed_ind, void* crossed_time, void* accept,    \
-                      void* n_events, void* sched, void* row_scratch,         \
-                      void* fallbacks, int P, int R, int N, int M, int E,     \
+                      void* n_events, void* sched, void* times,               \
+                      void* row_scratch, void* fallbacks, int P, int R,       \
+                      int N, int M, int E,                                    \
                       int W, int pad_b, int beta_per_row, int threads,        \
                       int counter_max,                                        \
                       double vth, double drive, double gap,                   \
@@ -403,7 +413,7 @@ int launch(const void* v0, const void* s0, const void* init_ind,
                    root_tol, counter_max};                                    \
     return launch<T>(v0, s0, init_ind, beta, last_ind, last_time,             \
                      crossed_ind, crossed_time, accept, n_events, sched,      \
-                     row_scratch, fallbacks, P, R, N, M, E, W, pad_b,         \
+                     times, row_scratch, fallbacks, P, R, N, M, E, W, pad_b,  \
                      beta_per_row, threads, c, stream);                       \
   }
 

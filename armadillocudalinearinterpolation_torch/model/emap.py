@@ -23,8 +23,11 @@ smooth piece at a point is differentiated forward, with no finite
 differences: the lift's tangents by ``torch.func`` over the plain lift,
 the evolve's by the tangent replay (K2T on the card,
 :func:`.replay.replay_events_tangent` on the CPU) of the point's own
-firing order (the fp64 evolve's log on a direct backend, the f32
-discovery's on ``"replay"``), and the restriction's by ``torch.func.jvp``.
+firing order (on a direct backend the fp64 evolve's log with its time log,
+so that the tangents ride on the trajectory that gives ``F``, at its own
+``root_tol`` event times; the f32 discovery's log on ``"replay"``, whose
+``F`` is the tangent replay's own primal), and the restriction's by
+``torch.func.jvp``.
 
 Points with their own parameters: where ``params.beta`` and
 ``params.sigma`` are ``(P,)`` tensors (one per point of a stack), the draw
@@ -299,20 +302,22 @@ def frozen_schedule_map(cfg: ModelConfig, params: MapParams,
 
 def direct_schedule(cfg: ModelConfig, evolve: Callable, v0, s0, beta,
                     init_ind):
-    """The direct evolve with its firing-order log: ``(result, schedule)``,
-    the log wide enough for every row's events (a row past
-    :func:`.replay.schedule_width` columns is run again with a wider log,
-    so that no row of the direct map is rejected by the replay of its
-    own log)."""
+    """The direct evolve with its firing-order log and time log:
+    ``(result, schedule, times)``, the logs wide enough for every row's
+    events (a row past :func:`.replay.schedule_width` columns is run again
+    with wider logs, so that no row of the direct map is rejected by the
+    replay of its own log)."""
+    rows = v0.shape[0] * cfg.n_real
     E = schedule_width(cfg)
-    res, sched = evolve(cfg, v0, s0, beta, init_ind, record_schedule=E,
-                        n_real=cfg.n_real)
-    need = int(res.n_events.max()) if res.n_events.numel() else 0
-    if need > E:
-        res, sched = evolve(cfg, v0, s0, beta, init_ind,
-                            record_schedule=-(-need // 128) * 128,
-                            n_real=cfg.n_real)
-    return res, sched
+    for _ in range(2):
+        times = torch.empty(rows, E, dtype=torch.float64, device=v0.device)
+        res, sched = evolve(cfg, v0, s0, beta, init_ind, record_schedule=E,
+                            n_real=cfg.n_real, event_times=times)
+        need = int(res.n_events.max()) if res.n_events.numel() else 0
+        if need <= E:
+            break
+        E = -(-need // 128) * 128
+    return res, sched, times
 
 
 def _restrict_residual(cfg: ModelConfig, res: EvolveResult, P: int):
@@ -359,23 +364,20 @@ def lift_tangents(cfg: ModelConfig, params: MapParams, Zs: torch.Tensor,
         ds0.contiguous()
 
 
-def rate_tangents(cfg: ModelConfig, beta: torch.Tensor,
-                  noise: Optional[torch.Tensor], dp: torch.Tensor,
-                  param: Optional[str]) -> torch.Tensor:
-    """The tangents of the draw ``beta`` (``(R, N)`` or ``(P * R, N)``)
-    along ``D`` directions of the walked parameter, ``dp`` ``(D, P)``: 1
-    along the beta axis, the frozen noise along sigma, 0 without a
-    parameter direction.  ``(D, rows of beta, N)`` float64."""
-    D, P = dp.shape
-    R, N = cfg.n_real, cfg.n_neurons
-    f64 = torch.float64
+def rate_base(cfg: ModelConfig, noise: Optional[torch.Tensor],
+              param: Optional[str], device) -> Optional[torch.Tensor]:
+    """The base of the draw's tangents along the walked parameter: along
+    a direction whose parameter tangent at point ``p`` is ``dp[d, p]``,
+    realisation ``r``'s rates move by ``dp[d, p] * base[r]``.  ``base`` is
+    the ``(R, N)`` float64 ones along the beta axis, the frozen noise along
+    sigma, and None without a parameter direction (the tangent replay's
+    ``base``)."""
     if param is None:
-        return torch.zeros(D, beta.shape[0], N, dtype=f64, device=dp.device)
-    base = (torch.ones(R, N, dtype=f64, device=dp.device)
-            if param == "beta" else noise.to(f64))
-    dbeta = dp[:, :, None, None] * base[None, None]          # (D, P, R, N)
-    return (dbeta.reshape(D, P * R, N) if beta.shape[0] != R
-            else dbeta[:, 0]).contiguous()
+        return None
+    if param == "beta":
+        return torch.ones(cfg.n_real, cfg.n_neurons, dtype=torch.float64,
+                          device=device)
+    return noise.to(torch.float64).contiguous()
 
 
 def _check_same_outcome(res: EvolveResult, res_t: EvolveResult) -> None:
@@ -383,10 +385,9 @@ def _check_same_outcome(res: EvolveResult, res_t: EvolveResult) -> None:
     direct evolve's whose log it replayed: the same rows accepted and, on
     them, the same recorded trajectory slots.  Else ``J`` would belong to
     another smooth piece than ``F``: raise :class:`JacobianUnavailable`.
-    (The two root-finds differ: the evolve's Newton to ``root_tol``, the
-    replay's f32 seed and two fp64 polishes.  Near a solution their times
-    agree to ~1e-10; far from one, at an absurd corrector step, they may
-    part.)"""
+    (The replay takes the evolve's logged times, so its times are the
+    evolve's bit for bit and the two outcomes cannot part; the check
+    stays as the guard of that contract.)"""
     slots = ((res.last_ind == res_t.last_ind)
              & (res.crossed_ind == res_t.crossed_ind)).all(dim=1)
     bad = (res.accept != res_t.accept) | (res.accept & ~slots)
@@ -450,10 +451,8 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
         beta = beta_from_noise(cfg, params, noise)
     elif param == "sigma":
         raise ValueError("a sigma direction needs the draw's noise")
-    if param is not None and beta.shape[0] == R and P > 1:
-        beta = beta.repeat(P, 1)          # the points' rates move apart
     beta = beta.contiguous()
-    dbeta = rate_tangents(cfg, beta, noise, dp, param)
+    base = rate_base(cfg, noise, param, dev)
     U, dU, v0, s0, dv0, ds0 = lift_tangents(
         cfg, params, Zs, dZ, dp[:, :, None] if param == "beta"
         else torch.zeros(D, P, 1, dtype=f64, device=dev))
@@ -463,15 +462,17 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
     if evolve_backend == "replay":
         sched, n_ev = compute_schedule(cfg, v0, s0, beta, init_ind,
                                        n_real=R)
-        res = None
+        res, times = None, None
     else:
-        res, sched = direct_schedule(
+        # the direct evolve's time log: the tangents ride on the
+        # trajectory that gives F, at its own (root_tol) event times
+        res, sched, times = direct_schedule(
             cfg, select_evolve(evolve_backend, dev), v0, s0, beta, init_ind)
         n_ev = res.n_events
     tangent = select_replay_tangent(dev)
     res_t, d_last, d_crossed = tangent(
         cfg, sched.contiguous(), n_ev.contiguous(), v0, s0, beta, init_ind,
-        dv0, ds0, dbeta, n_real=R)
+        dv0, ds0, base, dp.contiguous(), n_real=R, times=times)
     if res is None:
         res = res_t
     else:

@@ -77,14 +77,16 @@ def event_time(v0, s0, beta, cfg: ModelConfig):
 
 
 def event_time_jvp(v0, s0, beta, dv0, ds0, dbeta, cfg: ModelConfig, *,
-                   root=None, form: str = "evolve"):
+                   root=None, form: str = "evolve", fires=None):
     """The event time and its tangent along ``(dv0, ds0, dbeta)``:
     ``dt*/dtheta = -(df/dtheta) / (df/dt)`` at the root ``t*``.
 
     ``form="evolve"`` is the JAX package's rule for :func:`event_time`
     (``model/events.py:97-138`` there): the root is ``event_time``'s, the
     partials are those of :func:`membrane_fun`, and a non-firing lane (the
-    constant sentinel) has tangent 0.  ``form="shared"`` takes the partials
+    constant sentinel) has tangent 0; ``fires`` replaces the lanes' own
+    fire decision where the caller knows it (the evolve's logged time:
+    ``root < 100``).  ``form="shared"`` takes the partials
     of the shared-exponential form ``v e_t + I (1 - e_t) + s (e_b - e_t) /
     (1 - b) - vth`` (``e_t = exp(-t)``, ``e_b = exp(-b t)``), the form of
     the replay's root-find, at a given polished ``root`` (every lane taken
@@ -106,7 +108,7 @@ def event_time_jvp(v0, s0, beta, dv0, ds0, dbeta, cfg: ModelConfig, *,
     if form != "evolve":
         raise ValueError(f"form must be 'evolve' or 'shared'; got {form!r}")
     tau = event_time(v0, s0, beta, cfg) if root is None else root
-    decision = fire_decision(v0, s0, beta, cfg)
+    decision = fire_decision(v0, s0, beta, cfg) if fires is None else fires
     t = torch.where(decision, tau, torch.zeros_like(tau))
     u = 1.0 - beta
     emt = torch.exp(-t)

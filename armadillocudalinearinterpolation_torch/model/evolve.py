@@ -18,7 +18,11 @@ With ``record_schedule = E > 0`` the loop also logs the firing order, the
 input of the schedule replay (:mod:`.replay`): event ``k < E`` of a row
 writes its lane at column ``k``; a row with more events keeps counting
 ``n_events`` and logs nothing more (the replay rejects it through
-``n_events > E``); columns past a row's events stay 0.
+``n_events > E``); columns past a row's events stay 0.  Given
+``event_times``, a ``(rows, E)`` float64 tensor, the loop also writes there
+each logged event's ``dt`` as it took it (the time log: the exact tangent
+replay takes these times in place of its own root-find, so that ``J`` is
+taken on the trajectory that gave ``F``).
 
 This is the plain version of the CUDA kernel in ``csrc/evolve.cu``
 (:mod:`.evolve_cuda`) with every lane evaluated: the CPU path, and the
@@ -29,7 +33,7 @@ kernel's oracle on the card.  :func:`event_loop` takes the event selection
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -84,6 +88,23 @@ def check_evolve_inputs(cfg: ModelConfig, v0, s0, beta, init_ind,
         raise ValueError("v0, s0, beta and init_ind must be on one device")
 
 
+def check_event_times(event_times: Optional[torch.Tensor], rows: int,
+                      E: int, device: torch.device) -> None:
+    """The time log's buffer, where one is given, is a contiguous ``(rows,
+    E)`` float64 tensor on ``device``, with ``E > 0``; it is zero-filled."""
+    if event_times is None:
+        return
+    if (E < 1 or tuple(event_times.shape) != (rows, E)
+            or event_times.dtype != torch.float64
+            or event_times.device != device
+            or not event_times.is_contiguous()):
+        raise ValueError(f"event_times must be a contiguous ({rows}, {E}) "
+                         f"float64 tensor on {device}, with record_schedule "
+                         f"> 0; got {tuple(event_times.shape)} "
+                         f"{event_times.dtype} on {event_times.device}")
+    event_times.zero_()
+
+
 def select_full(cfg: ModelConfig, v: torch.Tensor, s: torch.Tensor,
                 b: torch.Tensor):
     """Steps 1-2 over every lane: ``(dt (rows, 1), j (rows,) int32)``."""
@@ -94,7 +115,8 @@ def select_full(cfg: ModelConfig, v: torch.Tensor, s: torch.Tensor,
 
 def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
                     beta: torch.Tensor, init_ind: torch.Tensor,
-                    record_schedule: int = 0, *, n_real=None
+                    record_schedule: int = 0, *, n_real=None,
+                    event_times: Optional[torch.Tensor] = None
                     ) -> Union[EvolveResult,
                                Tuple[EvolveResult, torch.Tensor]]:
     """Ensemble evolve of ``P`` points x ``R`` realisations.
@@ -107,6 +129,8 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
       init_ind: ``(P, M)`` int32 initial spike indices, one row per point.
       record_schedule: ``E > 0`` also returns the ``(P * R, E)`` int32
         firing-order log.
+      event_times: None, or a ``(P * R, E)`` float64 tensor (with
+        ``record_schedule = E``) that receives each logged event's ``dt``.
 
     Returns:
       :class:`EvolveResult` over ``P * R`` rows; row ``p * R + r`` is point
@@ -116,12 +140,13 @@ def evolve_ensemble(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
     return event_loop(cfg, v0, s0, beta, init_ind, record_schedule,
                       lambda v, s, b, last_ind, live: select_full(cfg, v, s,
                                                                   b),
-                      n_real=n_real)
+                      n_real=n_real, event_times=event_times)
 
 
 def event_loop(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
                beta: torch.Tensor, init_ind: torch.Tensor,
-               record_schedule: int, select: Callable, n_real=None):
+               record_schedule: int, select: Callable, n_real=None,
+               event_times: Optional[torch.Tensor] = None):
     """The loop of :func:`evolve_ensemble`, whose event selection is
     ``select(v, s, b, last_ind, live) -> (dt (rows, 1), j (rows,) int32)``
     on the ``(rows, N)`` states, the ``(rows, M)`` tracked indices and the
@@ -132,6 +157,7 @@ def event_loop(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
     P, N = v0.shape
     (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
     rows = P * R
+    check_event_times(event_times, rows, E, dev)
     T = cfg.t_horizon
     b = beta if per_row else beta.repeat(P, 1)               # (rows, N)
     v = v0.repeat_interleave(R, dim=0)
@@ -186,6 +212,10 @@ def event_loop(cfg: ModelConfig, v0: torch.Tensor, s0: torch.Tensor,
             col = torch.clamp(n_events, max=E - 1).long()[:, None]
             sched.scatter_(1, col, torch.where(
                 log, j, torch.gather(sched, 1, col)[:, 0])[:, None])
+            if event_times is not None:
+                event_times.scatter_(1, col, torch.where(
+                    log[:, None], dt.to(event_times.dtype),
+                    torch.gather(event_times, 1, col)))
         n_events = n_events + live.to(torch.int32)
 
     result = EvolveResult(last_ind=last_ind, last_time=last_time,

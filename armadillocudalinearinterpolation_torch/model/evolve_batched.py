@@ -102,7 +102,9 @@ def evolve_ensemble_batched(cfg: ModelConfig, v0: torch.Tensor,
                             s0: torch.Tensor, beta: torch.Tensor,
                             init_ind: torch.Tensor, record_schedule: int = 0,
                             *, fallbacks: Optional[torch.Tensor] = None,
-                            n_real=None) -> Union[EvolveResult,
+                            n_real=None,
+                            event_times: Optional[torch.Tensor] = None
+                            ) -> Union[EvolveResult,
                                        Tuple[EvolveResult, torch.Tensor]]:
     """:func:`.evolve.evolve_ensemble` with the root-find on
     ``cfg.evolve_window`` lanes (every lane when it is 0): the same
@@ -110,14 +112,15 @@ def evolve_ensemble_batched(cfg: ModelConfig, v0: torch.Tensor,
 
     ``fallbacks``, if given, is a ``(P * R,)`` int32 tensor that receives
     each row's count of events that fell back to every lane.  ``beta`` may
-    be ``(P * R, N)`` with ``n_real=R`` (see :func:`.evolve.evolve_ensemble`).
+    be ``(P * R, N)`` with ``n_real=R``, and ``event_times`` receives the
+    time log (see :func:`.evolve.evolve_ensemble`).
     """
     if fallbacks is not None:
         fallbacks.zero_()
     if not cfg.evolve_window:
         return evolve_ensemble(cfg, v0, s0, beta, init_ind, record_schedule,
-                               n_real=n_real)
+                               n_real=n_real, event_times=event_times)
     return event_loop(cfg, v0, s0, beta, init_ind, record_schedule,
                       lambda v, s, b, last_ind, live: select_windowed(
                           cfg, v, s, b, last_ind, live, fallbacks),
-                      n_real=n_real)
+                      n_real=n_real, event_times=event_times)

@@ -8,7 +8,8 @@ float32 and float64 tensors on a CUDA device.  It launches on the current
 stream, does not synchronise, and raises on any input the kernel does not
 take; there is no fallback.  ``LAUNCHES`` counts its launches (read it as
 ``evolve_cuda.LAUNCHES``).  ``record_schedule = E > 0`` adds the kernel's
-firing-order log, as the plain version returns it.
+firing-order log, as the plain version returns it, and ``event_times`` its
+time log.
 
 A row whose state does not fit one CTA's shared memory
 (:func:`row_fits_shared`) runs in a scratch of device memory that the
@@ -23,7 +24,8 @@ import torch
 
 from .. import _build
 from ..config import ModelConfig
-from .evolve import EvolveResult, beta_rows, check_evolve_inputs
+from .evolve import (EvolveResult, beta_rows, check_event_times,
+                     check_evolve_inputs)
 from .evolve_batched import window_pad
 
 LAUNCHES = 0
@@ -36,33 +38,28 @@ _ENTRY = {torch.float32: "atorch_evolve_f32",
 SHARED_OPTIN_BYTES = 232_448
 
 
-def row_elems(N: int, kind: str = "evolve") -> int:
+def row_elems(N: int) -> int:
     """Values of one row's state: ``v``, ``s``, ``beta`` (``N`` each) and
-    the kick table (``N // 2 + 1``); for ``kind="tangent"`` (K2T) also the
-    tangents ``dv``, ``ds`` and ``dbeta``."""
-    return (6 if kind == "tangent" else 3) * N + N // 2 + 1
+    the kick table (``N // 2 + 1``)."""
+    return 3 * N + N // 2 + 1
 
 
 def row_shared_bytes(N: int, M: int, dtype: torch.dtype, kind: str) -> int:
     """Dynamic shared memory of one CTA that keeps its row in shared
     memory, counting every array of ``smem_bytes`` in ``csrc/evolve.cu``
     (``kind="evolve"``, values of ``dtype``) or ``csrc/replay.cu``
-    (``kind="replay"``, always float64) or its tangent kernel
-    (``kind="tangent"``, float64): the row and kick table, the
+    (``kind="replay"``, always float64): the row and kick table, the
     per-trajectory times, indices and flags, and the scalars (the evolve's
     also three 32-slot tables for its block reduction; the replay's the
-    two-slot mailbox of its events; the tangent kernel's also the time
-    tangents and the mailbox's d(dt) slots)."""
+    two-slot mailbox of its events).  The tangent kernel's CTAs are
+    counted by :func:`.replay_cuda.tangent_shared_bytes`."""
     if kind == "evolve":
         item = torch.empty((), dtype=dtype).element_size()
         return (row_elems(N) + 2 * M + 32 + 32 + 4) * item \
             + (3 * M + 32 + 4) * 4
     if kind == "replay":
         return (row_elems(N) + 2 * M + 2) * 8 + (3 * M + 2) * 4
-    if kind == "tangent":
-        return (row_elems(N, kind) + 4 * M + 4) * 8 + (3 * M + 2) * 4
-    raise ValueError(f"kind must be 'evolve', 'replay' or 'tangent'; got "
-                     f"{kind!r}")
+    raise ValueError(f"kind must be 'evolve' or 'replay'; got {kind!r}")
 
 
 def default_threads(N: int, rows: int, sms: int, dtype: torch.dtype) -> int:
@@ -99,7 +96,9 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
                          s0: torch.Tensor, beta: torch.Tensor,
                          init_ind: torch.Tensor, record_schedule: int = 0,
                          *, fallbacks: Optional[torch.Tensor] = None,
-                         n_real=None) -> Union[EvolveResult,
+                         n_real=None,
+                         event_times: Optional[torch.Tensor] = None
+                         ) -> Union[EvolveResult,
                                     Tuple[EvolveResult, torch.Tensor]]:
     """Ensemble evolve of ``P`` points x ``R`` realisations on the card.
 
@@ -113,6 +112,9 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
       fallbacks: ``None``, or a ``(P * R,)`` int32 CUDA tensor that
         receives each row's count of windowed events that fell back to
         every lane.
+      event_times: None, or a ``(P * R, E)`` float64 CUDA tensor (with
+        ``record_schedule = E``) that receives each logged event's ``dt``
+        (the time log; see :func:`.evolve.evolve_ensemble`).
 
     Returns:
       :class:`EvolveResult` over ``P * R`` rows, row ``p * R + r`` for
@@ -140,6 +142,7 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
                                   or not fallbacks.is_contiguous()):
         raise ValueError(f"fallbacks must be a contiguous ({P * R},) int32 "
                          f"tensor on {dev}")
+    check_event_times(event_times, P * R, E, dev)
     W = cfg.evolve_window
     last_ind = torch.empty(P * R, M, dtype=torch.int32, device=dev)
     last_time = torch.empty(P * R, M, dtype=dt_, device=dev)
@@ -162,6 +165,7 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
             crossed_ind.data_ptr(), crossed_time.data_ptr(),
             accept.data_ptr(), n_events.data_ptr(),
             sched.data_ptr() if E else None,
+            None if event_times is None else event_times.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             None if fallbacks is None else fallbacks.data_ptr(),
             P, R, N, M, E, W, window_pad(W) if W else 0, int(per_row),

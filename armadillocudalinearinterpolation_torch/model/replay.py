@@ -44,6 +44,8 @@ oracle on the card; both follow the same formulas in the same order.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import ModelConfig
@@ -123,22 +125,30 @@ def check_replay_inputs(cfg: ModelConfig, sched, n_sched, v0, s0, beta,
                          "on one device")
 
 
-def check_tangent_inputs(cfg: ModelConfig, v0, beta, dv0, ds0, dbeta,
-                         n_real=None) -> int:
-    """Shapes of the tangent replay's directions; returns ``D``."""
+def check_tangent_inputs(cfg: ModelConfig, v0, beta, dv0, ds0, base, dp,
+                         n_real=None, sched=None, times=None) -> int:
+    """Shapes of the tangent replay's directions, its rate tangents
+    ``(base, dp)`` and its time log; returns ``D``."""
     P, N = v0.shape
-    R, per_row = beta_rows(beta, P, n_real)
+    R, _ = beta_rows(beta, P, n_real)
     if dv0.ndim != 3 or dv0.shape[1:] != (P, N) or ds0.shape != dv0.shape:
         raise ValueError(f"dv0 and ds0 must both be (D, {P}, {N}); got "
                          f"{tuple(dv0.shape)} and {tuple(ds0.shape)}")
     D = dv0.shape[0]
-    if tuple(dbeta.shape) != (D, beta.shape[0], N):
-        raise ValueError(f"dbeta must be ({D}, {beta.shape[0]}, {N}), as "
-                         f"beta; got {tuple(dbeta.shape)}")
     if D < 1:
         raise ValueError("the tangent replay needs at least one direction")
-    for name, x in (("dv0", dv0), ("ds0", ds0), ("dbeta", dbeta)):
-        if x.dtype != torch.float64 or x.device != v0.device:
+    if tuple(dp.shape) != (D, P):
+        raise ValueError(f"dp must be ({D}, {P}); got {tuple(dp.shape)}")
+    if base is not None and tuple(base.shape) != (R, N):
+        raise ValueError(f"base must be ({R}, {N}) or None; got "
+                         f"{tuple(base.shape)}")
+    if times is not None and times.shape != sched.shape:
+        raise ValueError(f"times must be shaped as sched, "
+                         f"{tuple(sched.shape)}; got {tuple(times.shape)}")
+    for name, x in (("dv0", dv0), ("ds0", ds0), ("base", base), ("dp", dp),
+                    ("times", times)):
+        if x is not None and (x.dtype != torch.float64
+                              or x.device != v0.device):
             raise TypeError(f"{name} must be float64 on {v0.device}; got "
                             f"{x.dtype} on {x.device}")
     return D
@@ -155,11 +165,13 @@ def _membrane_shared(t, v, s, b, cfg: ModelConfig):
 
 
 def _replay(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
-            n_real, tangents):
+            n_real, tangents, times=None):
     """The replay loop of :func:`replay_events` and, with ``tangents =
-    (dv0, ds0, dbeta)``, of :func:`replay_events_tangent`: the primal
-    lines are the same either way.  Returns ``(result, d_last, d_crossed)``
-    (the tangents None without ``tangents``)."""
+    (dv0, ds0, base, dp)``, of :func:`replay_events_tangent`: the primal
+    lines are the same either way.  ``times``: the event times of the
+    evolve that logged ``sched``, taken in place of the root-find.
+    Returns ``(result, d_last, d_crossed)`` (the tangents None without
+    ``tangents``)."""
     f64, dev, out_dt = torch.float64, v0.device, v0.dtype
     P, N = v0.shape
     (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
@@ -170,6 +182,7 @@ def _replay(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
     s = s0.to(f64).repeat_interleave(R, dim=0)
     b = beta.to(f64) if per_row else beta.to(f64).repeat(P, 1)
     sch = sched.repeat(rows // sched.shape[0], 1)
+    tms = None if times is None else times.repeat(rows // sched.shape[0], 1)
     ns = n_sched.repeat(rows // sched.shape[0])
     ii = init_ind.reshape(-1, M)
     last_ind = ii.repeat_interleave(rows // ii.shape[0], dim=0)
@@ -185,11 +198,14 @@ def _replay(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
     lane = torch.arange(N, device=dev)[None, :]
     traj = torch.arange(M, device=dev)[None, :]
     if tangents is not None:
-        dv0, ds0, dbeta = tangents
+        dv0, ds0, base, dp = tangents
         D = dv0.shape[0]
         dv = dv0.repeat_interleave(R, dim=1)                 # (D, rows, N)
         ds = ds0.repeat_interleave(R, dim=1)
-        db = dbeta if per_row else dbeta.repeat(1, P, 1)
+        # the rates' tangent of row p * R + r: dp[d, p] * base[r]
+        db = (torch.zeros(D, rows, N, dtype=f64, device=dev)
+              if base is None else (dp[:, :, None, None] * base[None, None])
+              .reshape(D, rows, N))
         tt = torch.zeros(D, rows, dtype=f64, device=dev)
         one = torch.ones((), dtype=f64, device=dev)
         d_last = torch.zeros(D, rows, M, dtype=f64, device=dev)
@@ -204,20 +220,27 @@ def _replay(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
         live = live & ~bad
         jj = torch.clamp(j, 0, N - 1).long()[:, None]
 
-        # scalar root-find of the scheduled lane: f32 seed, two fp64 polishes
         vj, sj, bj = (torch.gather(x, 1, jj)[:, 0] for x in (v, s, b))
-        dt32 = event_time(vj.float(), sj.float(), bj.float(), cfg32)
-        misfire = dt32 >= 100.0
-        dt = torch.where(misfire, MISFIRE_DT, dt32.to(f64))
-        for _ in range(2):
-            f = _membrane_shared(dt, vj, sj, bj, cfg)
-            fp = membrane_dfun(dt, vj, sj, bj, cfg)
-            fp = torch.where(torch.abs(fp) > 1e-12, fp, 1.0)
-            dt = dt - f / fp
-        # a misfire's polish iterates on a rootless residual: pin it back so
-        # no NaN reaches the row; a live row's dt is never clamped
-        dt = torch.where(misfire, MISFIRE_DT, dt)
-        consistent = consistent & ~(misfire & live)
+        if times is None:
+            # scalar root-find of the scheduled lane: f32 seed, two fp64
+            # polishes
+            dt32 = event_time(vj.float(), sj.float(), bj.float(), cfg32)
+            misfire = dt32 >= 100.0
+            dt = torch.where(misfire, MISFIRE_DT, dt32.to(f64))
+            for _ in range(2):
+                f = _membrane_shared(dt, vj, sj, bj, cfg)
+                fp = membrane_dfun(dt, vj, sj, bj, cfg)
+                fp = torch.where(torch.abs(fp) > 1e-12, fp, 1.0)
+                dt = dt - f / fp
+            # a misfire's polish iterates on a rootless residual: pin it
+            # back so no NaN reaches the row; a live row's dt is never
+            # clamped
+            dt = torch.where(misfire, MISFIRE_DT, dt)
+            consistent = consistent & ~(misfire & live)
+        else:
+            # the evolve's own time, as it took it (no misfire: the evolve
+            # fired this lane at this time)
+            dt = tms[:, k]
 
         # closed-form advance, reset of the firing lane, ring kick
         dtc = dt[:, None]
@@ -233,12 +256,18 @@ def _replay(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
         livec = live[:, None]
         if tangents is not None:
             # d(dt) by the implicit function theorem at the polished root
-            # (0 for a misfire, whose dt is pinned), then the advance's
-            # partials in v, s, b and dt; the reset lane's v has tangent 0
-            ddt = torch.where(misfire, 0.0, event_time_jvp(
-                vj, sj, bj, *(torch.gather(x, 2, jj[None].expand(D, -1, -1))
-                              [..., 0] for x in (dv, ds, db)),
-                cfg, root=dt, form="shared")[1])              # (D, rows)
+            # (0 for a misfire, whose dt is pinned), or by the evolve's own
+            # rule at its logged time (0 where no lane fired, the sentinel
+            # >= 100); then the advance's partials in v, s, b and dt; the
+            # reset lane's v has tangent 0
+            dj = [torch.gather(x, 2, jj[None].expand(D, -1, -1))[..., 0]
+                  for x in (dv, ds, db)]
+            if times is None:
+                ddt = torch.where(misfire, 0.0, event_time_jvp(
+                    vj, sj, bj, *dj, cfg, root=dt, form="shared")[1])
+            else:
+                ddt = event_time_jvp(vj, sj, bj, *dj, cfg, root=dt,
+                                     form="evolve", fires=dt < 100.0)[1]
             ddtc = ddt[..., None]
             inv = one / (1.0 - b)
             q = (e_b - e_t) * inv
@@ -318,8 +347,9 @@ def replay_events_tangent(cfg: ModelConfig, sched: torch.Tensor,
                           n_sched: torch.Tensor, v0: torch.Tensor,
                           s0: torch.Tensor, beta: torch.Tensor,
                           init_ind: torch.Tensor, dv0: torch.Tensor,
-                          ds0: torch.Tensor, dbeta: torch.Tensor, *,
-                          n_real=None):
+                          ds0: torch.Tensor, base: Optional[torch.Tensor],
+                          dp: torch.Tensor, *, n_real=None,
+                          times: Optional[torch.Tensor] = None):
     """:func:`replay_events` with ``D`` forward tangents (plain version of
     K2T): the exact derivative of the replay's smooth piece on its frozen
     schedule.
@@ -334,11 +364,23 @@ def replay_events_tangent(cfg: ModelConfig, sched: torch.Tensor,
     ``d(dt)``.  The tangents of ``last_time`` and ``crossed_time`` are
     taken where the times are recorded; a rejected row's are 0.
 
+    With ``times``, the time log of the evolve that wrote ``sched``, each
+    event takes the evolve's own ``dt`` (no root-find, no misfire) and
+    ``d(dt)`` by the evolve's rule at that time
+    (``event_time_jvp(form="evolve")``; 0 where no lane fired): the
+    primal times are then the evolve's bit for bit, and the tangents are
+    those of the trajectory that gave them, whatever ``cfg.root_tol``.
+
     Args:
       dv0, ds0: ``(D, P, N)`` float64 tangents of the lifts.
-      dbeta: ``(D, R, N)`` or ``(D, P * R, N)`` float64 tangents of the
-        rates, as ``beta`` is laid out: 0 along a ``Z`` direction, 1 along
-        the beta axis, the frozen noise along the sigma axis.
+      base, dp: the rates' tangents.  Row ``p * R + r`` of the draw moves
+        by ``dp[d, p] * base[r]`` along direction ``d``: ``base`` is the
+        ``(R, N)`` float64 ones along the beta axis, the frozen noise along
+        the sigma axis, or None (no rate moves); ``dp`` is ``(D, P)``
+        float64.
+      times: None, or the ``(R, E)`` / ``(P * R, E)`` float64 time log
+        beside ``sched`` (:func:`.evolve.evolve_ensemble`'s
+        ``event_times``).
       The rest as :func:`replay_events` takes them.
 
     Returns:
@@ -346,9 +388,10 @@ def replay_events_tangent(cfg: ModelConfig, sched: torch.Tensor,
       :class:`EvolveResult` and two ``(D, P * R, M)`` float64 tensors.
     """
     check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real)
-    check_tangent_inputs(cfg, v0, beta, dv0, ds0, dbeta, n_real)
+    check_tangent_inputs(cfg, v0, beta, dv0, ds0, base, dp, n_real, sched,
+                         times)
     return _replay(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real,
-                   (dv0, ds0, dbeta))
+                   (dv0, ds0, base, dp), times)
 
 
 def select_replay(device: torch.device):

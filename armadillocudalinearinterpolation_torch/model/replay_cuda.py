@@ -11,17 +11,24 @@ take, and on a launch the card refuses; there is no fallback.
 
 :func:`replay_events_tangent_cuda` is K2T, the same replay with ``D``
 forward tangents (the exact Jacobian's kernel; plain version
-:func:`.replay.replay_events_tangent`): one CTA per (row, direction), of
-:func:`replay_layout`'s threads (``kind="tangent"``);
+:func:`.replay.replay_events_tangent`): the primal once a row for all ``D``
+directions, the row's lanes split over a thread-block cluster of
+:func:`replay_layout`'s CTAs (``kind="tangent"``: the smallest cluster whose
+CTAs hold their share of the row in shared memory, or a pair where a row
+of one CTA would leave most of the card idle);
 ``TANGENT_LAUNCHES`` counts its launches.
 
-The launch is one CTA a row, of :func:`replay_layout`'s threads, always.
+K2's launch is one CTA a row, of :func:`replay_layout`'s threads, always.
 A row that does not fit one CTA's shared memory
-(:func:`.evolve_cuda.row_fits_shared`) keeps its state in a scratch of
-device memory that the wrapper allocates; the kernel body is the same.
+(:func:`.evolve_cuda.row_fits_shared`; for K2T, a cluster of 8) keeps its
+state in a scratch of device memory that the wrapper allocates; the
+kernel body is the same.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,32 +61,99 @@ SHARED_RESERVED_PER_CTA = 1024
 # K2T's __launch_bounds__(512, 1) lets it take up to 128 registers a
 # thread: the register file holds 512 of its threads an SM.
 TANGENT_THREADS_PER_SM = 512
+# the cluster sizes K2T takes: a row's lanes over 1 to 8 CTAs (8 is the
+# portable limit)
+CLUSTER_SIZES = (1, 2, 4, 8)
+# K2T splits a row that fits one CTA over a pair where each CTA keeps at
+# least this many lanes and the pairs make one wave: the cluster barrier
+# then costs less than the sweep of the other half (tools/k2t_study.py on
+# an H100: N=2048 gains, N=512 and 1024 lose)
+TANGENT_PAIR_MIN_LANES = 1024
+
+
+class TangentLayout(NamedTuple):
+    """K2T's launch: ``cluster`` CTAs a row of ``threads`` each, every one
+    holding its share of the row's lanes in shared memory (``in_shared``),
+    or one CTA a row (``cluster`` 1) with the row in device memory."""
+
+    cluster: int
+    threads: int
+    in_shared: bool
+
+
+def tangent_shared_bytes(N: int, M: int, D: int, C: int,
+                         in_shared: bool = True) -> int:
+    """Dynamic shared memory of one K2T CTA in a cluster of ``C``, counting
+    every array of ``tangent_smem_bytes`` in ``csrc/replay.cu``: its
+    ``ceil(N / C)`` lanes of v, s, beta, the rates' tangent base and the
+    ``D`` pairs (dv, ds), and the ``N // 2 + 1`` kick table (none of which
+    where the row is in device memory); the times and their ``D`` tangents
+    of each of ``M`` trajectories, last and crossed; the two-slot mailbox
+    (dt and ``D`` d(dt)); t's ``D`` tangents and the ``D`` dp of the
+    row's point; and the int bookkeeping.  All float64."""
+    lanes = -(-N // C)
+    row = (4 + 2 * D) * lanes + N // 2 + 1 if in_shared else 0
+    return (row + 2 * M + 2 * D * M + 2 + 4 * D) * 8 + (3 * M + 2) * 4
 
 
 def replay_layout(N: int, M: int, rows: int, sms: int,
                   optin: int = SHARED_OPTIN_BYTES,
                   shared_per_sm: int = SHARED_PER_SM,
-                  kind: str = "replay") -> int:
-    """Threads a CTA of K2 (``kind="replay"``) for ``rows`` rows of ``N``
-    lanes and ``M`` trajectories, one CTA a row, or of K2T
-    (``kind="tangent"``, ``rows`` counting one CTA a row and direction), on
-    a card of ``sms`` SMs whose blocks may opt in to ``optin`` bytes of
-    shared memory, of ``shared_per_sm`` an SM.
+                  kind: str = "replay", D: int = 1):
+    """The launch of K2 (``kind="replay"``: threads a CTA, one CTA a row)
+    or of K2T (``kind="tangent"``: a :class:`TangentLayout`) for ``rows``
+    rows of ``N`` lanes and ``M`` trajectories (and K2T's ``D``
+    directions) on a card of ``sms`` SMs whose blocks may opt in to
+    ``optin`` bytes of shared memory, of ``shared_per_sm`` an SM.
 
-    The CTAs that one SM has to hold for every row to be resident in one
-    wave (as far as its shared memory lets it) share ``THREADS_PER_SM``
-    (K2T: ``TANGENT_THREADS_PER_SM``) threads; no CTA has more than
-    ``MAX_THREADS``, nor more sweep threads than lanes (rounded up to a
-    warp), and each has the event warp and at least one sweep warp."""
-    per_cta = row_shared_bytes(N, M, torch.float64, kind)
-    if not row_fits_shared(N, M, torch.float64, kind, optin):
-        per_cta -= row_elems(N, kind) * 8    # the row in device memory
+    K2T's cluster is the smallest of :data:`CLUSTER_SIZES` whose CTAs hold
+    their share of the row and its directions in shared memory
+    (:func:`tangent_shared_bytes`), else one CTA with the row in device
+    memory; where that smallest is 1, a pair if each of its CTAs keeps
+    :data:`TANGENT_PAIR_MIN_LANES` lanes and ``2 * rows`` CTAs fit the
+    ``sms`` (a larger cluster than fit needs is not taken: clusters of 4
+    place in two waves where ``4 * rows`` CTAs would fit).  The CTAs that one SM has to hold for every row to be resident
+    in one wave (as far as its shared memory lets it) share
+    ``THREADS_PER_SM`` (K2T: ``TANGENT_THREADS_PER_SM``) threads; no CTA
+    has more than ``MAX_THREADS``, nor more sweep threads than its lanes
+    (rounded up to a warp), and each has the event warp and at least one
+    sweep warp."""
+    if kind == "tangent":
+        cluster = next((c for c in CLUSTER_SIZES
+                        if tangent_shared_bytes(N, M, D, c) <= optin), None)
+        in_shared = cluster is not None
+        cluster = cluster or 1
+        if (in_shared and cluster == 1 and 2 * rows <= sms
+                and N // 2 >= TANGENT_PAIR_MIN_LANES):
+            cluster = 2
+        per_cta = tangent_shared_bytes(N, M, D, cluster, in_shared)
+        lanes, ctas, per_sm = -(-N // cluster), rows * cluster, \
+            TANGENT_THREADS_PER_SM
+    elif kind == "replay":
+        per_cta = row_shared_bytes(N, M, torch.float64, kind)
+        if not row_fits_shared(N, M, torch.float64, kind, optin):
+            per_cta -= row_elems(N) * 8    # the row in device memory
+        lanes, ctas, per_sm = N, rows, THREADS_PER_SM
+    else:
+        raise ValueError(f"kind must be 'replay' or 'tangent'; got {kind!r}")
+    threads = block_threads(per_cta, lanes, ctas, sms, shared_per_sm,
+                            per_sm)
+    if kind == "replay":
+        return threads
+    return TangentLayout(cluster, threads, in_shared)
+
+
+def block_threads(per_cta: int, lanes: int, ctas: int, sms: int,
+                  shared_per_sm: int, per_sm: int) -> int:
+    """Threads of each of ``ctas`` CTAs of ``per_cta`` bytes of shared
+    memory and ``lanes`` lanes on ``sms`` SMs: the CTAs one SM holds for
+    one wave (as far as its ``shared_per_sm`` bytes let it) share
+    ``per_sm`` threads, within ``MAX_THREADS``, the event warp and one
+    sweep warp, and no more sweep threads than lanes."""
     by_shared = shared_per_sm // (per_cta + SHARED_RESERVED_PER_CTA)
-    resident = max(1, min(-(-rows // sms), by_shared))
-    per_sm = THREADS_PER_SM if kind == "replay" else TANGENT_THREADS_PER_SM
-    threads = min(per_sm // resident // 32 * 32, MAX_THREADS,
-                  32 + -(-N // 32) * 32)
-    return max(64, threads)
+    resident = max(1, min(-(-ctas // sms), by_shared))
+    return max(64, min(per_sm // resident // 32 * 32, MAX_THREADS,
+                       32 + -(-lanes // 32) * 32))
 
 
 def replay_events_cuda(cfg: ModelConfig, sched: torch.Tensor,
@@ -152,24 +226,31 @@ def replay_events_tangent_cuda(cfg: ModelConfig, sched: torch.Tensor,
                                n_sched: torch.Tensor, v0: torch.Tensor,
                                s0: torch.Tensor, beta: torch.Tensor,
                                init_ind: torch.Tensor, dv0: torch.Tensor,
-                               ds0: torch.Tensor, dbeta: torch.Tensor, *,
-                               n_real=None):
-    """K2T: the replay with ``D`` forward tangents on the card, one CTA
-    per (row, direction).
+                               ds0: torch.Tensor,
+                               base: Optional[torch.Tensor],
+                               dp: torch.Tensor, *, n_real=None,
+                               times: Optional[torch.Tensor] = None):
+    """K2T: the replay with ``D`` forward tangents on the card, the primal
+    once a row, the row's lanes over a cluster of :func:`replay_layout`'s
+    CTAs.
 
     Takes and returns what :func:`.replay.replay_events_tangent` does:
     ``(result, d_last_time, d_crossed_time)``, the tangents ``(D, P * R,
-    M)`` float64.  The primal outputs equal :func:`replay_events_cuda`'s
-    bit for bit (the same per-lane code).  Raises on any input the kernel
-    does not take and on a launch the card refuses; there is no fallback.
+    M)`` float64; ``times``, the direct evolve's time log, replaces the
+    root-find.  Without it the primal outputs equal
+    :func:`replay_events_cuda`'s bit for bit (the same per-lane code).
+    Raises on any input the kernel does not take and on a launch the card
+    refuses (a cluster it cannot place included); there is no fallback.
     """
     global TANGENT_LAUNCHES
     check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real)
-    D = check_tangent_inputs(cfg, v0, beta, dv0, ds0, dbeta, n_real)
+    D = check_tangent_inputs(cfg, v0, beta, dv0, ds0, base, dp, n_real,
+                             sched, times)
     for name, x in (("sched", sched), ("n_sched", n_sched), ("v0", v0),
                     ("s0", s0), ("beta", beta), ("init_ind", init_ind),
-                    ("dv0", dv0), ("ds0", ds0), ("dbeta", dbeta)):
-        if not x.is_contiguous():
+                    ("dv0", dv0), ("ds0", ds0), ("base", base), ("dp", dp),
+                    ("times", times)):
+        if x is not None and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if v0.device.type != "cuda":
         raise ValueError("replay_events_tangent_cuda needs CUDA tensors; "
@@ -190,31 +271,49 @@ def replay_events_tangent_cuda(cfg: ModelConfig, sched: torch.Tensor,
     d_crossed = torch.empty(D, rows, M, dtype=f64, device=dev)
     wtab = kick_table(cfg, dev)
     cfg32 = schedule_config(cfg)
-    optin = shared_optin_bytes(dev)
     props = torch.cuda.get_device_properties(dev)
-    threads = replay_layout(N, M, rows * D, props.multi_processor_count,
-                            optin, props.shared_memory_per_multiprocessor,
-                            "tangent")
-    scratch = (None if row_fits_shared(N, M, f64, "tangent", optin)
-               else torch.empty(rows * D * 6 * N, dtype=f64, device=dev))
+    layout = replay_layout(N, M, rows, props.multi_processor_count,
+                           shared_optin_bytes(dev),
+                           props.shared_memory_per_multiprocessor,
+                           "tangent", D)
+    scratch = (None if layout.in_shared
+               else torch.empty(rows * (4 + 2 * D) * N, dtype=f64,
+                                device=dev))
 
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, _TANGENT_ENTRY[dt_])(
             v0.data_ptr(), s0.data_ptr(), beta.data_ptr(), dv0.data_ptr(),
-            ds0.data_ptr(), dbeta.data_ptr(), sched.data_ptr(),
-            n_sched.data_ptr(), init_ind.data_ptr(), wtab.data_ptr(),
-            last_ind.data_ptr(), last_time.data_ptr(),
+            ds0.data_ptr(), None if base is None else base.data_ptr(),
+            dp.data_ptr(), None if times is None else times.data_ptr(),
+            sched.data_ptr(), n_sched.data_ptr(), init_ind.data_ptr(),
+            wtab.data_ptr(), last_ind.data_ptr(), last_time.data_ptr(),
             crossed_ind.data_ptr(), crossed_time.data_ptr(),
             accept.data_ptr(), d_last.data_ptr(), d_crossed.data_ptr(),
             None if scratch is None else scratch.data_ptr(), P, R, N, M, E,
-            S, Q, D, int(per_row), threads, cfg32.counter_max,
-            cfg.vth, cfg.drive, cfg.vth - cfg.drive, cfg.t_horizon,
-            cfg32.root_tol, stream)
+            S, Q, D, layout.cluster, int(per_row), layout.threads,
+            cfg32.counter_max, cfg.vth, cfg.drive, cfg.vth - cfg.drive,
+            cfg.t_horizon, cfg32.root_tol, stream)
     _build.check(lib, code, "tangent replay kernel launch")
     TANGENT_LAUNCHES += 1
     result = EvolveResult(last_ind=last_ind, last_time=last_time,
                           crossed_ind=crossed_ind, crossed_time=crossed_time,
                           accept=accept, n_events=n_sched.repeat(rows // S))
     return result, d_last, d_crossed
+
+
+def tangent_clusters(layout: TangentLayout, N: int, M: int, D: int, *,
+                     per_row: bool = False, logged: bool = False) -> int:
+    """How many clusters of ``layout`` the current card holds at once for
+    K2T's f64 variant at ``N`` lanes, ``M`` trajectories and ``D``
+    directions a row (``cudaOccupancyMaxActiveClusters``): a launch of
+    ``rows`` rows runs in ``ceil(rows / clusters)`` waves.  A report for
+    ``chip_smoke.py`` and ``tools/k2t_study.py``; no launch asks it."""
+    out = ctypes.c_int(0)
+    lib = _build.load_library()
+    code = lib.atorch_replay_tangent_clusters(
+        int(not layout.in_shared), int(per_row), int(logged), N, M, D,
+        layout.cluster, layout.threads, ctypes.byref(out))
+    _build.check(lib, code, "K2T cluster occupancy")
+    return out.value

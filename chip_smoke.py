@@ -66,18 +66,25 @@ config 5's 1e-2 the CLI stops on a non-finite step 0, recorded beside),
 and ``--staged --dtype float64`` at config 4 for 2 steps.  Then exact
 Jacobians at config 4 (``exact``): the tangent replay kernel (K2T) against
 its plain version at D=3 and D=4 (the beta column), 64 rows, at the guess
-and an FD point, its primal against K2's (0.0), its Jacobian against
-central FD of the frozen-schedule map (1e-5 relative), its device time,
-µs per event, registers and bound (its lane update counted from the SASS
-by ``tools/kernel_resources.py``), and ``newton_solve_staged`` on the
+and an FD point, on the f32 discovery's order with its own root-find (its
+primal against K2's, 0.0) and on the fp64 direct evolve's order and time
+log (its primal times K1's own), and so again at the walkers' shape (N=512,
+R=4, sigma 0, the default root_tol; one CTA a row) at the artifact's root
+and the fold's point, its Jacobian against central FD of the frozen-schedule
+map (1e-5 relative), its layout (cluster, threads, waves), device time in
+both modes at D=3 and 4, µs per event, registers and bound (its lane
+update counted from the SASS by ``tools/kernel_resources.py``), K1's
+fp64 log with and without its time log in turns, and
+``newton_solve_staged`` on the
 direct evolve (the exact stage 2 by default) from the guess and the guess
 + 1e-3, and on the replay with an exact stage 2 beside the frozen-fwd
 default, each to 1e-8 recomputed by a fresh map.  Then the walkers
 (``walkers``) through ``cli.driver.main``: the artifact's arclength walk
 (N=512, R=4, sigma 0, f64, 70 steps with ``--stability``) against
 ``artifacts/arclength_fold/`` (first three solutions to 1e-6, the end at
-beta 16.01445 to 1e-3, every accepted |r| <= 1e-9), ``--track-fold``
-(the fold at 20.3245 to 5e-3), ``--enumerate-branches`` and
+beta 16.01445 to 1e-3, every accepted |r| <= 1e-9), ``--track-fold`` at
+the default root tolerance (the fold at 20.3245 to 5e-3),
+``--enumerate-branches`` and
 ``--track-boundary`` (the bracket around 16.0144) under a wall cap, and
 three arclength steps at config 4 with the exact and the frozen corrector.
 Every ``kernels`` entry carries its bound (bytes or
@@ -94,6 +101,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import io
 import json
@@ -203,9 +211,9 @@ PEAK = {"bytes": 3.35e12, "float32": 67e12, "float64": 34e12}
 # argmin 2; on every lane: advance 13, kick-table index 3, synapse 6; on
 # each lane outside the window: the certificate's ratio and minimum 9.
 K1_EVAL_OPS, K1_ADVANCE_OPS, K1_CERT_OPS = 39, 22, 9
-# K2: the fp64-pipe instructions of its per-lane body (replay.cu's advance
-# and kick_weight: one exp, one division, the advance and the kick; exp and
-# division are instruction sequences on this card), counted in the SASS
+# K2: the fp64-pipe instructions of its per-lane body (replay_lane.cuh's
+# advance and kick_weight: one exp, one division, the advance and the kick;
+# exp and division are instruction sequences on this card), counted in the SASS
 # that cuobjdump shows of the package's build for sm_90a by
 # tools/kernel_resources.py on an H100 machine: 21 DFMA (two operations
 # each), 7 DMUL, 8 DADD, 1 MUFU.RCP64H, 1 DSETP.  The root-find of each
@@ -229,17 +237,16 @@ WALK_SMALL = ["--neurons", "512", "--realisations", "4", "--sigma", "0",
               "--dtype", "float64"]
 WALK_ROOT = ["--guess", "0.32623663", "0.71936722", "1.36899475",
              "--beta", "13.0589"]
+# the walkers' model (WALK_SMALL at the default root_tol) and two of their
+# points, each (Z, beta): K2T against its plain version at their shape
+WALK_CONFIG = {"n_neurons": 512, "n_real": 4, "dtype": "float64"}
+WALK_POINTS = {"artifact_root": ((0.32623663, 0.71936722, 1.36899475),
+                                 13.0589),
+               "fold_point": ((0.59145, 0.57176, 10.07225), 20.32)}
 WALK_BARS = {"artifact_solution": 1e-6, "artifact_end_beta": 1e-3,
              "walk_residual": 1e-9, "fold_beta": 5e-3,
              "boundary_beta": 0.1}
 ARTIFACT_END_BETA, FOLD_BETA, BOUNDARY_BETA = 16.01445, 20.3245, 16.0144
-# the fold system is non-smooth at the FD scale in both packages (its J v
-# rows jump across seeding and order changes); at the default root_tol
-# 1e-6 the port's exact tangents of the polished order sit ~1e-4 off the
-# JAX package's IFT tangents at loose roots and its Newton wanders from
-# this point (ROADMAP Queue 3); with converged roots both differentiate
-# one trajectory (tests/test_torch_fold.py)
-FOLD_ROOT_TOL = 1e-12
 WALKER_WALL_CAP_S = 240
 CONFIG4_ARC = {"steps": 3, "ds": 0.1, "tolerance": 1e-7}
 # repairs: more grids than one launch dimension holds, more 1-D batches,
@@ -2219,6 +2226,13 @@ def resources_tool():
     return tool
 
 
+@functools.lru_cache(maxsize=1)
+def replay_resources() -> dict:
+    """``tools/kernel_resources.py``'s report of ``csrc/replay.cu``: one
+    ``nvcc -Xptxas -v`` of it for the run."""
+    return resources_tool().source_resources(ROOT / REPLAY_SRC)
+
+
 def replay_registers(kernel: str = "replay_kernel") -> dict:
     """Registers and spill bytes of each variant of K2 (``kernel=
     "replay_kernel"``) or K2T (``"replay_tangent_kernel"``), as
@@ -2226,8 +2240,7 @@ def replay_registers(kernel: str = "replay_kernel") -> dict:
     the package's flags."""
     out = {}
     key = kernel + "<"
-    for name, res in resources_tool().source_resources(
-            ROOT / REPLAY_SRC).items():
+    for name, res in replay_resources().items():
         if key in name:
             start = name.index(key)
             out[name[start:name.index(">", start) + 1]] = res
@@ -2256,12 +2269,111 @@ def rel_diff(got, want) -> float:
         want.abs().max()))
 
 
+def k2t_cases(pt, torch, dev, cfg, params, beta, z) -> dict:
+    """K2T's arguments at ``z`` for D=4 (the Z directions and the beta
+    column) and D=3 (the Z directions), keyed ``(mode, D)``: root-find
+    mode on the f32 discovery's order (the replay backend), and logged
+    mode on the fp64 direct evolve's order and time log (the direct
+    backend), each ``(args, kwargs, primal)`` with ``primal`` what its
+    primal must equal: None for K2's (root-find) or the direct evolve's
+    result (logged)."""
+    from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
+    from armadillocudalinearinterpolation_torch.model.replay import (
+        compute_schedule)
+    f64 = torch.float64
+    R, N = cfg.n_real, cfg.n_neurons
+    ii = pt.initial_spike_indices(cfg, z[None]).contiguous()
+    base = torch.ones(R, N, dtype=f64, device=dev)
+    cases = {}
+    for D in (4, 3):
+        eye = torch.eye(D, dtype=f64, device=dev)
+        dp = (eye[:, 3:].reshape(D, 1) if D == 4
+              else torch.zeros(D, 1, dtype=f64, device=dev)).contiguous()
+        _, _, v0, s0, dv0, ds0 = emap.lift_tangents(
+            cfg, params, z[None], eye[:, None, :3], dp[:, :, None])
+        if D == 4:
+            sched, n_ev = compute_schedule(cfg, v0, s0, beta, ii)
+            res_d, sched_d, times_d = emap.direct_schedule(
+                cfg, evolve_cuda.evolve_ensemble_cuda, v0, s0, beta, ii)
+        tail = (dv0, ds0, base if D == 4 else None, dp)
+        cases[("root_find", D)] = ((cfg, sched, n_ev, v0, s0, beta, ii,
+                                    *tail), {}, None)
+        cases[("logged", D)] = ((cfg, sched_d, res_d.n_events, v0, s0, beta,
+                                 ii, *tail), {"times": times_d}, res_d)
+    return cases
+
+
+def k2t_against_plain(torch, cases, bars, where: str):
+    """K2T on each of :func:`k2t_cases` against the plain tangent replay:
+    its primal equal to K2's (root-find mode) or to the direct evolve's
+    (logged mode), and to the plain version's, and its tangents within
+    ``bars["k2t_vs_plain_relative"]`` of the plain version's.  The plain
+    version runs once a mode at D=4 (its first three directions are the
+    D=3 launch's, each direction computed on its own).  Returns the
+    entries keyed ``"{mode}_D{D}"`` and the plain version's ms a mode."""
+    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
+                                                              replay_cuda)
+    from armadillocudalinearinterpolation_torch.model.replay import (
+        replay_events_tangent)
+    out, wants, plain_ms = {}, {}, {}
+    for (mode, D), (args, kw, res_d) in cases.items():
+        k_ms, got = cuda_ms(
+            lambda: replay_cuda.replay_events_tangent_cuda(*args, **kw),
+            torch)
+        if res_d is None:
+            k2 = replay_cuda.replay_events_cuda(*args[:7])
+            primal = all(torch.equal(getattr(got[0], f), getattr(k2, f))
+                         for f in k2._fields)
+        else:
+            primal = all(torch.equal(getattr(got[0], f), getattr(res_d, f))
+                         for f in ("last_ind", "last_time", "crossed_ind",
+                                   "crossed_time", "accept"))
+        cfg, v0 = args[0], args[3]
+        props = torch.cuda.get_device_properties(v0.device)
+        layout = replay_cuda.replay_layout(
+            cfg.n_neurons, cfg.n_spikes, v0.shape[0] * cfg.n_real,
+            props.multi_processor_count,
+            evolve_cuda.shared_optin_bytes(v0.device),
+            props.shared_memory_per_multiprocessor, "tangent", D)
+        entry = {"kernel_ms_first_call": k_ms, "layout": layout._asdict(),
+                 "accepted": int(got[0].accept.sum()),
+                 "primal_equals": primal,
+                 "primal_against": "K2" if res_d is None else
+                 "K1 f64 (its own times)"}
+        if mode not in wants:
+            plain_ms[mode], wants[mode] = cuda_ms(
+                lambda: replay_events_tangent(*args, **kw), torch)
+            entry["plain_ms"] = plain_ms[mode]
+            entry["primal_equals_plain"] = all(
+                torch.equal(getattr(got[0], f), getattr(wants[mode][0], f))
+                for f in got[0]._fields)
+            require(entry["primal_equals_plain"], f"exact: K2T {where} "
+                    f"{mode} D=4 primal differs from the plain tangent "
+                    "replay")
+        want = wants[mode]
+        entry["tangent_rel_diff"] = max(
+            rel_diff(got[1], want[1][:D]), rel_diff(got[2], want[2][:D]))
+        entry["tangent_max_abs_diff"] = max(
+            float((got[1] - want[1][:D]).abs().max()),
+            float((got[2] - want[2][:D]).abs().max()))
+        out[f"{mode}_D{D}"] = entry
+        require(primal, f"exact: K2T {where} {mode} D={D} primal differs "
+                f"from {entry['primal_against']}'s")
+        require(entry["tangent_rel_diff"] <= bars["k2t_vs_plain_relative"],
+                f"exact: K2T {where} {mode} D={D} tangents "
+                f"{entry['tangent_rel_diff']}")
+    return out, plain_ms
+
+
 def exact(pt, torch, dev, smi: str):
     """Exact Jacobians at config 4: K2T against its plain version at D=3
     (the Z directions) and D=4 (with the beta column), 64 rows, at the
-    guess and an FD point, and its primal against K2; K2T's Jacobian
-    against central FD of the frozen-schedule map; K2T's device time,
-    bound, registers; then the main path, with the launch counts set to 0
+    guess and an FD point, in root-find mode (its primal against K2) and
+    with the direct evolve's time log (its primal times against K1's), and
+    so at the walkers' shape (``WALK_CONFIG``, ``WALK_POINTS``); K2T's Jacobian
+    against central FD of the frozen-schedule map; K2T's layout, device
+    time in both modes, bound, registers; K1's fp64 log with and without
+    its time log in turns; then the main path, with the launch counts set to 0
     just before and read just after: ``newton_solve_staged`` on the direct
     evolve (exact stage 2 by default) from the guess and the guess + 1e-3,
     the residual recomputed by a fresh direct map, and on the replay with
@@ -2269,7 +2381,7 @@ def exact(pt, torch, dev, smi: str):
     from armadillocudalinearinterpolation_torch.model import (
         emap, evolve_cuda, replay_cuda)
     from armadillocudalinearinterpolation_torch.model.replay import (
-        compute_schedule, replay_events_tangent, schedule_width)
+        compute_schedule, schedule_width)
     from armadillocudalinearinterpolation_torch.solvers import staged as st
     bars = EXACT_BARS
     f64 = torch.float64
@@ -2280,60 +2392,35 @@ def exact(pt, torch, dev, smi: str):
                             device=dev)
     beta = pt.beta_from_noise(cfg, params, noise).contiguous()
     guess = torch.tensor(INITIAL_GUESS, dtype=f64, device=dev)
-    points = {"guess": guess,
-              "fd_point": guess + EXACT_FD_EPS * torch.eye(
-                  3, dtype=f64, device=dev)[0]}
 
-    # K2T against the plain tangent replay and against K2, per point: the
-    # plain version runs once at D=4 (its first three directions are the
-    # D=3 launch's, computed independently per direction)
-    k2t, args4 = {}, None
-    for name, z in points.items():
-        ii = pt.initial_spike_indices(cfg, z[None]).contiguous()
-        want = None
-        for D in (4, 3):
-            eye = torch.eye(D, dtype=f64, device=dev)
-            dp = (eye[:, 3:].reshape(D, 1) if D == 4
-                  else torch.zeros(D, 1, dtype=f64, device=dev))
-            param = "beta" if D == 4 else None
-            _, _, v0, s0, dv0, ds0 = emap.lift_tangents(
-                cfg, params, z[None], eye[:, None, :3], dp[:, :, None])
-            if want is None:
-                sched, n_ev = compute_schedule(cfg, v0, s0, beta, ii)
-            dbeta = emap.rate_tangents(cfg, beta, noise, dp, param)
-            args = (cfg, sched, n_ev, v0, s0, beta, ii, dv0, ds0, dbeta)
-            k_ms, got = cuda_ms(
-                lambda: replay_cuda.replay_events_tangent_cuda(*args), torch)
-            k2 = replay_cuda.replay_events_cuda(cfg, sched, n_ev, v0, s0,
-                                                beta, ii)
-            primal = all(torch.equal(getattr(got[0], f), getattr(k2, f))
-                         for f in k2._fields)
-            entry = {"kernel_ms_first_call": k_ms, "primal_equals_k2":
-                     primal, "accepted": int(got[0].accept.sum())}
-            if want is None:
-                p_ms, want = cuda_ms(lambda: replay_events_tangent(*args),
-                                     torch)
-                entry["plain_ms"] = p_ms
-                plain_primal = all(torch.equal(getattr(got[0], f),
-                                               getattr(want[0], f))
-                                   for f in k2._fields)
-                entry["primal_equals_plain"] = plain_primal
-                require(plain_primal, f"exact: K2T {name} D=4 primal "
-                        "differs from the plain tangent replay")
-                if name == "guess":
-                    args4, plain4_ms = args, p_ms
-            entry["tangent_rel_diff"] = max(
-                rel_diff(got[1], want[1][:D]), rel_diff(got[2], want[2][:D]))
-            entry["tangent_max_abs_diff"] = max(
-                float((got[1] - want[1][:D]).abs().max()),
-                float((got[2] - want[2][:D]).abs().max()))
-            k2t[f"{name}_D{D}"] = entry
-            require(primal, f"exact: K2T {name} D={D} primal differs from "
-                    "K2's")
-            require(entry["tangent_rel_diff"]
-                    <= bars["k2t_vs_plain_relative"],
-                    f"exact: K2T {name} D={D} tangents "
-                    f"{entry['tangent_rel_diff']}")
+    # K2T against the plain tangent replay at config 4, at the guess and an
+    # FD point, and at the walkers' shape (N=512, R=4, sigma 0, the
+    # default root_tol), at the artifact's root and the fold's point, each
+    # launch at its own layout
+    k2t, plain_ms = {}, {}
+    for name, z in (("guess", guess), ("fd_point", guess + EXACT_FD_EPS
+                                       * torch.eye(3, dtype=f64,
+                                                   device=dev)[0])):
+        got_cases = k2t_cases(pt, torch, dev, cfg, params, beta, z)
+        if name == "guess":
+            cases = got_cases
+        part, ms = k2t_against_plain(torch, got_cases, bars,
+                                     f"config 4 {name}")
+        k2t.update({f"{name}_{k}": v for k, v in part.items()})
+        plain_ms.update({f"{name}_{k}": v for k, v in ms.items()})
+    cfg_w = pt.ModelConfig(**WALK_CONFIG)
+    for name, (z, b) in WALK_POINTS.items():
+        p_w = pt.MapParams.create(b, 0.0, dtype="float64", device=dev)
+        beta_w = pt.beta_from_noise(cfg_w, p_w, pt.sample_noise(
+            cfg_w, torch.Generator(device=dev).manual_seed(0),
+            device=dev)).contiguous()
+        got_cases = k2t_cases(pt, torch, dev, cfg_w, p_w, beta_w,
+                              torch.tensor(z, dtype=f64, device=dev))
+        part, _ = k2t_against_plain(torch, got_cases, bars,
+                                    f"walkers {name}")
+        k2t.update({f"walkers_{name}_{k}": v for k, v in part.items()})
+    args4 = cases[("root_find", 4)][0]
+    plain4_ms = plain_ms["guess_root_find"]
 
     # K2T's Jacobian (the replay map's, beta column included) against
     # central FD of the frozen-schedule map on the same discovered order
@@ -2355,45 +2442,62 @@ def exact(pt, torch, dev, smi: str):
     require(j_rel <= bars["jacobian_vs_frozen_fd_relative"],
             f"exact: K2T's Jacobian vs frozen central FD {j_rel}")
 
-    # K2T's time: CUDA events (median of 5), the profiler's device time,
-    # K2's beside it on the same inputs, µs per event
-    n_ev4 = args4[2]
-    events = int(torch.clamp(n_ev4, max=E).sum())
+    # K2T's time at D=4 and D=3 in both modes: CUDA events (median of 5)
+    # and the profiler's device time; its layout and waves; K2 on the same
+    # inputs beside it; µs per event
+    props = torch.cuda.get_device_properties(dev)
+    events = int(torch.clamp(args4[2], max=E).sum())
     events_per_row = events / R
-    k2t_ms = statistics.median(cuda_ms(
-        lambda: replay_cuda.replay_events_tangent_cuda(*args4), torch)[0]
-        for _ in range(5))
-    k2t3_args = (*args4[:7], *(x[:3].contiguous() for x in args4[7:]))
-    k2t3_ms = statistics.median(cuda_ms(
-        lambda: replay_cuda.replay_events_tangent_cuda(*k2t3_args),
-        torch)[0] for _ in range(5))
+    times_k2t = {}
+    for (mode, D), (args, kw, _) in cases.items():
+        run = (lambda a=args, k=kw:
+               replay_cuda.replay_events_tangent_cuda(*a, **k))
+        ms = statistics.median(cuda_ms(run, torch)[0] for _ in range(5))
+        _, per = device_us(run, torch, n=3)
+        us = next((v for k, v in per.items()
+                   if "replay_tangent_kernel" in k), None)
+        layout = replay_cuda.replay_layout(
+            N, cfg.n_spikes, R, props.multi_processor_count,
+            evolve_cuda.shared_optin_bytes(dev),
+            props.shared_memory_per_multiprocessor, "tangent", D)
+        clusters = replay_cuda.tangent_clusters(layout, N, cfg.n_spikes, D,
+                                                logged=mode == "logged")
+        times_k2t[f"{mode}_D{D}"] = {
+            "ms": ms, "device_us": us, "layout": layout._asdict(),
+            "clusters_at_once": clusters,
+            "waves": -(-R // max(1, clusters)),
+            "us_per_event": None if us is None else us / events_per_row}
     k2_args = args4[:7]
     k2_ms = statistics.median(cuda_ms(
         lambda: replay_cuda.replay_events_cuda(*k2_args), torch)[0]
         for _ in range(5))
-    _, per = device_us(lambda: replay_cuda.replay_events_tangent_cuda(
-        *args4), torch, n=3)
-    k2t_us = next((v for k, v in per.items()
-                   if "replay_tangent_kernel" in k), None)
     _, per = device_us(lambda: replay_cuda.replay_events_cuda(*k2_args),
                        torch, n=3)
     k2_us = next((v for k, v in per.items() if "replay_kernel" in k
                   and "tangent" not in k), None)
-    # the function's operations a lane and event: the primal advance once
-    # (K2's probe) and one tangent a direction (K2T's probe less K2's),
-    # though each of K2T's CTAs repeats the primal
-    lane = resources_tool().lane_update("tangent")
-    lane_k2 = resources_tool().lane_update("replay")
-    ops = {"primal": lane_k2["fp64_ops"],
-           "tangent_each": lane["fp64_ops"] - lane_k2["fp64_ops"],
-           "directions": int(args4[7].shape[0])}
-    ops["per_lane_event"] = ops["primal"] + ops["directions"] * ops[
-        "tangent_each"]
+    # K1 f64 at config 4's direct log (64 rows, W=512) with and without
+    # its time log, in turns: what the log costs the kernel
+    v4, s4, ii = args4[3], args4[4], args4[6]
+    k1_turns = timed_in_turns({
+        "with_time_log": lambda: emap.direct_schedule(
+            cfg, evolve_cuda.evolve_ensemble_cuda, v4, s4, beta, ii),
+        "order_only": lambda: evolve_cuda.evolve_ensemble_cuda(
+            cfg, v4, s4, beta, ii, record_schedule=E, n_real=R)}, torch,
+        n=5)
+    # the operations a lane and event: the primal advance once and the
+    # tangents of D directions (the probe of K2T's lane update, D
+    # compiled in)
+    tool = resources_tool()
+    lanes = {D: tool.lane_update("tangent", D) for D in (4, 3)}
+    ops = {"primal": tool.lane_update("replay")["fp64_ops"],
+           "per_lane_event_D4": lanes[4]["fp64_ops"],
+           "per_lane_event_D3": lanes[3]["fp64_ops"], "directions": 4}
+    ops["per_lane_event"] = ops["per_lane_event_D4"]
     out4 = replay_cuda.replay_events_tangent_cuda(*args4)
-    b_ms, b_by = bound(nbytes(*args4[1:]) + nbytes(*out4[0], out4[1],
-                                                    out4[2]),
+    b_ms, b_by = bound(nbytes(*(x for x in args4[1:] if x is not None))
+                       + nbytes(*out4[0], out4[1], out4[2]),
                        ops["per_lane_event"] * events * N, "float64")
-    props = torch.cuda.get_device_properties(dev)
+    b3_ms, _ = bound(0, ops["per_lane_event_D3"] * events * N, "float64")
 
     # the main path: staged solves with the launch counts set to 0 just
     # before and read just after each
@@ -2461,11 +2565,11 @@ def exact(pt, torch, dev, smi: str):
     ii_s = pt.initial_spike_indices(cfg, sol[None]).contiguous()
     parts["fp64_log_k1"] = lambda: emap.direct_schedule(
         cfg, evolve_cuda.evolve_ensemble_cuda, v_s, s_s, beta, ii_s)
-    res_s, sched_s = parts["fp64_log_k1"]()
-    db_s = torch.zeros(3, R, N, dtype=f64, device=dev)
+    res_s, sched_s, times_s = parts["fp64_log_k1"]()
+    dp_s = torch.zeros(3, 1, dtype=f64, device=dev)
     parts["k2t_D3"] = lambda: replay_cuda.replay_events_tangent_cuda(
         cfg, sched_s, res_s.n_events, v_s, s_s, beta, ii_s, dv_s, ds_s,
-        db_s)
+        None, dp_s, times=times_s)
     parts["discovery_f32"] = lambda: compute_schedule(cfg, v_s, s_s, beta,
                                                       ii_s)
     breakdown = {k: statistics.median(cuda_ms(fn, torch)[0]
@@ -2480,18 +2584,19 @@ def exact(pt, torch, dev, smi: str):
         "source": REPLAY_SRC, "replaces": K2T_SRC_LINE,
         "launches": path_launches["replay_tangent_kernel"],
         "max_abs_err": max(v["tangent_max_abs_diff"] for v in k2t.values()),
-        "ms": k2t_ms, "plain_ms": plain4_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None, "device_us": k2t_us,
-        "shape": f"config 4: {R} rows x N={N}, D=4 directions (256 CTAs)",
-        "ms_D3": k2t3_ms, "k2_ms_same_inputs": k2_ms,
-        "k2_device_us_same_inputs": k2_us,
-        "us_per_event": None if k2t_us is None else k2t_us / events_per_row,
+        "ms": times_k2t["root_find_D4"]["ms"], "plain_ms": plain4_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_us": times_k2t["root_find_D4"]["device_us"],
+        "shape": f"config 4: {R} rows x N={N}, D=4 directions, root-find "
+                 "mode (the replay backend)",
+        "bound_ms_D3": b3_ms, "by_mode": times_k2t,
+        "plain_ms_logged": plain_ms["guess_logged"],
+        "k2_ms_same_inputs": k2_ms, "k2_device_us_same_inputs": k2_us,
+        "k1_f64_log_ms_in_turns": k1_turns,
         "events_per_row_mean": events_per_row,
-        "threads": replay_cuda.replay_layout(
-            N, cfg.n_spikes, R * 4, props.multi_processor_count,
-            evolve_cuda.shared_optin_bytes(dev),
-            props.shared_memory_per_multiprocessor, "tangent"),
-        "lane_update": lane, "bound_ops": ops,
+        "layout": times_k2t["root_find_D4"]["layout"],
+        "waves": times_k2t["root_find_D4"]["waves"],
+        "lane_update": lanes, "bound_ops": ops,
         "registers": replay_registers("replay_tangent_kernel")}
     row = {"phase": "exact", "config": CONFIG4, "sigma": SIGMA,
            "beta": BETA, "bars": bars, "k2t_vs_plain": k2t,
@@ -2537,7 +2642,6 @@ def walkers(pt, torch, dev, smi: str, z_config4):
             "track_fold": WALK_SMALL + [
                 "--guess", "0.59145", "0.57176", "10.07225", "--beta",
                 "20.32", "--track-fold", "--sigma-values", "0",
-                "--root-tol", str(FOLD_ROOT_TOL),
                 "--fd-mode", "central", "--fd-eps", "1e-6", "--tol", "1e-6",
                 "--max-iter", "12", "--quiet", "--checkpoint", d["fold"]],
             "enumerate_branches": WALK_SMALL + WALK_ROOT + [

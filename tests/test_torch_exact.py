@@ -115,7 +115,11 @@ def test_event_time_jvp_shared_form_matches_fd(argi):
 def replay_case(P=2, R=3, per_row=True):
     """The plain replay's inputs at N=512: P points around the guess, each
     at its own beta (per-row rates) or one shared draw, and D = 4
-    directions (two Z seeds, the beta axis, the sigma axis)."""
+    directions (two Z seeds, the beta axis, the sigma axis).  The rates'
+    tangents come as ``(bases, dp)``: the base of the beta axis (ones) and
+    of the sigma axis (the noise), each with its ``(D, P)`` parameter
+    tangents (one call of the tangent replay takes one base); ``db`` is the
+    ``(D, P * R, N)`` tangent of the draw they make together, for FD."""
     _, pcfg = configs(n_neurons=512, n_real=R, root_tol=1e-12,
                       max_events=2048)
     f64 = torch.float64
@@ -136,21 +140,31 @@ def replay_case(P=2, R=3, per_row=True):
     ds = torch.zeros_like(dv)
     dv[:2] = 1e-2 * torch.randn(2, P, 512, generator=gen, dtype=f64)
     ds[:2] = 1e-2 * torch.randn(2, P, 512, generator=gen, dtype=f64)
-    db = torch.zeros(4, beta.shape[0], 512, dtype=f64)
+    bases = {}
+    for d, base in ((2, torch.ones(R, 512, dtype=f64)), (3, noise)):
+        dp = torch.zeros(4, P, dtype=f64)
+        dp[d] = 1.0
+        bases[d] = (base, dp)
+    db = torch.zeros(4, P * R, 512, dtype=f64)
     db[2] = 1.0
-    db[3] = noise.repeat(beta.shape[0] // R, 1)
-    return pcfg, sched, n_ev, v0, s0, beta, ii, dv, ds, db, R
+    db[3] = noise.repeat(P, 1)
+    return pcfg, sched, n_ev, v0, s0, beta, ii, dv, ds, bases, db, R
 
 
 @pytest.fixture(scope="module")
 def tangent_replay():
+    """The case and the plain tangent replay of it, once with each base:
+    ``{2: ..., 3: ...}`` (the beta axis' call serves the Z seeds too)."""
     case = replay_case()
-    return case, replay_events_tangent(*case[:-1], n_real=case[-1])
+    pcfg, sched, n_ev, v0, s0, beta, ii, dv, ds, bases, _, R = case
+    return case, {d: replay_events_tangent(pcfg, sched, n_ev, v0, s0, beta,
+                                           ii, dv, ds, *bases[d], n_real=R)
+                  for d in bases}
 
 
 def test_replay_tangent_primal_equals_replay(tangent_replay):
-    (pcfg, sched, n_ev, v0, s0, beta, ii, *_, R), (res, _, _) = \
-        tangent_replay
+    (pcfg, sched, n_ev, v0, s0, beta, ii, *_, R), runs = tangent_replay
+    res = runs[2][0]
     want = replay_events(pcfg, sched, n_ev, v0, s0, beta, ii, n_real=R)
     assert bool(res.accept.all())
     for name in want._fields:
@@ -162,8 +176,9 @@ def test_replay_tangent_primal_equals_replay(tangent_replay):
 def test_replay_tangent_matches_frozen_fd(tangent_replay, d):
     """Each direction's time tangents against central FD of the plain
     replay on the same frozen schedule (eps 1e-6): rtol 1e-5."""
-    (pcfg, sched, n_ev, v0, s0, beta, ii, dv, ds, db, R), \
-        (_, d_last, d_crossed) = tangent_replay
+    (pcfg, sched, n_ev, v0, s0, beta, ii, dv, ds, _, db, R), runs = \
+        tangent_replay
+    _, d_last, d_crossed = runs[3 if d == 3 else 2]
     eps = 1e-6
     rp = replay_events(pcfg, sched, n_ev, v0 + eps * dv[d], s0 + eps * ds[d],
                        beta + eps * db[d], ii, n_real=R)

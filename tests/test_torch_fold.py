@@ -21,23 +21,30 @@ Z_FOLD, BETA_FOLD = (0.59145, 0.57176, 10.07225), 20.32
 RESIDUAL_RTOL, RESIDUAL_ATOL = 1e-9, 1e-12
 
 
-@pytest.fixture(scope="module")
-def setup():
-    # root_tol 1e-12: the direct evolve's roots converged, so its JAX
-    # jacfwd (IFT tangents at those roots) and the port's tangent replay of
-    # the same order differentiate the same trajectory (at the default
-    # 1e-6 the J v rows were measured 1.1e-4 apart, relative, here)
-    jcfg, pcfg = configs(n_neurons=512, n_real=4, root_tol=1e-12)
+def setup_at(root_tol):
+    """Both packages' configurations at ``root_tol`` and the JAX noise.
+    At the default 1e-6 the direct evolve's roots are loose: the port's
+    J v rows ride on that evolve's own event times (its time log), as the
+    JAX jacfwd does (before the time log they sat 1.1e-4 apart, relative,
+    here, and the fold solve wandered)."""
+    jcfg, pcfg = configs(n_neurons=512, n_real=4, root_tol=root_tol)
     noise = np.asarray(jax.random.normal(KEY, (4, 512), dtype=jnp.float64))
     return jcfg, pcfg, noise
 
 
-@pytest.mark.parametrize("sigma", [0.0, 0.1])
-def test_fold_residual_matches_jax(setup, sigma):
+@pytest.fixture(scope="module")
+def setup():
+    return setup_at(1e-12)
+
+
+@pytest.mark.parametrize("root_tol, sigma", [
+    (1e-12, 0.0), (1e-12, 0.1), (1e-6, 0.0), (1e-6, 0.1)],
+    ids=["0.0", "0.1", "root_tol_1e-6-0.0", "root_tol_1e-6-0.1"])
+def test_fold_residual_matches_jax(root_tol, sigma):
     """H(w, sigma) at one point, and at a stack of two points each at its
     own beta (the FD stencil's layout), against the JAX residual: 1e-9
-    relative."""
-    jcfg, pcfg, noise = setup
+    relative, at root_tol 1e-12 and at the default 1e-6."""
+    jcfg, pcfg, noise = setup_at(root_tol)
     v = np.array([0.3, -0.5, 0.8])
     v = v / np.linalg.norm(v)
     w = np.concatenate([Z_FOLD, v, [BETA_FOLD]])
@@ -63,12 +70,10 @@ def test_null_direction_matches_jax():
     np.testing.assert_allclose(abs(got @ want), 1.0, rtol=1e-12)
 
 
-@pytest.mark.slow
-def test_solve_fold_lands_on_the_fold(setup):
+def solve_fold_from_the_near_fold_point(pcfg, noise):
     """From the near-fold point with the exact Jacobian's null direction,
     central FD at 1e-6 to |H| <= 1e-6: the fold at beta 20.3245 within
     5e-3 (the JAX test's bars, tests/test_fold.py)."""
-    _, pcfg, noise = setup
     noise = torch.tensor(noise)
     F = pt.make_residual_fn(pcfg, pt.MapParams.create(BETA_FOLD, 0.0,
                                                       dtype="float64"),
@@ -83,3 +88,18 @@ def test_solve_fold_lands_on_the_fold(setup):
     assert p.converged and abs(p.beta - 20.3245) < 5e-3
     assert p.residual_norm < 1e-6
     np.testing.assert_allclose(np.linalg.norm(p.v), 1.0, rtol=1e-9)
+
+
+@pytest.mark.slow
+def test_solve_fold_lands_on_the_fold(setup):
+    _, pcfg, noise = setup
+    solve_fold_from_the_near_fold_point(pcfg, noise)
+
+
+@pytest.mark.slow
+def test_solve_fold_lands_on_the_fold_at_the_default_root_tol():
+    """The same solve at the ModelConfig default root_tol (1e-6), where
+    tests/test_fold.py runs the JAX one."""
+    _, pcfg, noise = setup_at(1e-6)
+    assert pcfg.root_tol == pt.ModelConfig().root_tol
+    solve_fold_from_the_near_fold_point(pcfg, noise)

@@ -307,7 +307,8 @@ def test_kernel_registers_fit_the_layout(card):
     """Every K2 variant (float or double states, the row in shared or
     device memory, the rates shared or one row per row), as the package's
     flags compile it (``tools/kernel_resources.py``), fits 1024 threads an
-    SM (the budget of replay_layout) in the register file."""
+    SM (the budget of replay_layout) in the register file; every K2T
+    variant (the same, and the root-find or the time log) 512."""
     import importlib.util
     from pathlib import Path
     root = Path(__file__).resolve().parent.parent
@@ -315,12 +316,17 @@ def test_kernel_registers_fit_the_layout(card):
         "kernel_resources", root / "tools" / "kernel_resources.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    regs = {name: r for name, r in tool.source_resources(
-        _build.CSRC / "replay.cu").items()
-        if "replay_kernel<" in name}
+    every = tool.source_resources(_build.CSRC / "replay.cu")
+    regs = {name: r for name, r in every.items() if "replay_kernel<" in name}
     assert len(regs) == 8
     for r in regs.values():
         assert 0 < r["registers"] * replay_cuda.THREADS_PER_SM <= 65_536
+    tangent = {name: r for name, r in every.items()
+               if "replay_tangent_kernel<" in name}
+    assert len(tangent) == 16
+    for r in tangent.values():
+        assert 0 < r["registers"] * replay_cuda.TANGENT_THREADS_PER_SM \
+            <= 65_536
 
 
 def test_default_layout_fills_the_card(card):

@@ -10,7 +10,7 @@ each ``csrc/*.cu`` with the package's own flags (``_build.NVCC_FLAGS``)
 and ``-Xptxas -v`` and reports each kernel's registers, stack frame and
 spill stores and loads (``source_resources``, which ``chip_smoke.py`` also
 calls for the replay kernel's line).  Then compiles a probe kernel that applies
-``csrc/replay.cu``'s ``advance`` and ``kick_weight`` (the sweep's whole
+``csrc/replay_lane.cuh``'s ``advance`` and ``kick_weight`` (the sweep's whole
 per-lane body) to one lane a thread, and counts the fp64-pipe instructions in its SASS
 (``cuobjdump -sass``) up to the kernel's first ``EXIT``: the path every
 lane takes, without the division's slow-path subroutine placed after it.
@@ -18,11 +18,10 @@ lane takes, without the division's slow-path subroutine placed after it.
 add), as the card's fp64 peak counts them, and every other fp64-pipe
 instruction (DADD, DMUL, DSETP, DMNMX, MUFU.RCP64H, conversions to or from
 F64) as one: ``chip_smoke.py``'s ``K2_OPS_PER_LANE_EVENT``.  A second
-probe applies ``advance_tangent`` (K2T's per-lane body: the same advance
-and one tangent direction) and is counted the same way
-(``lane_update("tangent")``): ``chip_smoke.py`` bounds K2T by the
-primal's count once and, for each direction, the difference of the two
-probes (one tangent's operations).  Prints one JSON object.
+probe applies ``advance_directions`` (K2T's per-lane body: the same
+advance once and the tangents of D directions, D compiled in) and is
+counted the same way (``lane_update("tangent", D)``): ``chip_smoke.py``
+bounds K2T at D directions by that count.  Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PROBE = r"""
-#include "replay.cu"
+#include "replay_lane.cuh"
 
 extern "C" __global__ void atorch_lane_probe(double* v, double* s,
                                              const double* b,
@@ -53,23 +52,19 @@ extern "C" __global__ void atorch_lane_probe(double* v, double* s,
 }
 """
 PROBE_TANGENT = r"""
-#include "replay.cu"
+#include "replay_lane.cuh"
 
 extern "C" __global__ void atorch_lane_probe(double* v, double* s,
-                                             const double* b, double* dv,
-                                             double* ds, const double* db,
+                                             const double* b,
+                                             const double* bs, double* dv,
+                                             double* ds, const double* dp,
+                                             const double* ddt,
                                              const double* w, int N, int j,
-                                             double dt, double ddt,
-                                             double e_t, double de,
-                                             double drive) {
+                                             double dt, double e_t,
+                                             double de, double drive) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  double vi = v[i], si = s[i], dvi = dv[i], dsi = ds[i];
-  advance_tangent(vi, si, b[i], dvi, dsi, db[i], kick_weight(w, i, j, N),
-                  i == j, dt, ddt, e_t, de, drive);
-  v[i] = vi;
-  s[i] = si;
-  dv[i] = dvi;
-  ds[i] = dsi;
+  advance_directions(v, s, b, bs, dv, ds, N, i, DIRECTIONS, dp, ddt,
+                     kick_weight(w, i, j, N), i == j, dt, e_t, de, drive);
 }
 """
 PROBES = {"replay": PROBE, "tangent": PROBE_TANGENT}
@@ -134,10 +129,11 @@ def source_resources(src: Path) -> dict:
             zip(entries, demangle(entries, Path(nvcc).parent))}
 
 
-def lane_update(kind: str = "replay") -> dict:
+def lane_update(kind: str = "replay", directions: int = 1) -> dict:
     """The fp64 instructions and operations of one lane's update in the
     SASS of a probe kernel: K2's (``kind="replay"``) or K2T's
-    (``"tangent"``, one direction)."""
+    (``"tangent"``: the primal once and ``directions`` tangents, the
+    count compiled in so the loop unrolls)."""
     sys.path.insert(0, str(ROOT))
     from armadillocudalinearinterpolation_torch import _build
     nvcc = _build.nvcc()
@@ -145,7 +141,8 @@ def lane_update(kind: str = "replay") -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         probe = tmp / "probe.cu"
-        probe.write_text(PROBES[kind])
+        probe.write_text(PROBES[kind].replace("DIRECTIONS",
+                                              str(int(directions))))
         subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                         "-cubin", "-o", str(tmp / "probe.cubin"), str(probe)],
                        capture_output=True, text=True, check=True)
@@ -178,7 +175,8 @@ def main() -> int:
     print(json.dumps({
         "kernels": kernels,
         "k2_lane_update": lane_update("replay"),
-        "k2t_lane_update": lane_update("tangent"),
+        "k2t_lane_update": {f"D{d}": lane_update("tangent", d)
+                            for d in (1, 2, 3, 4)},
         "nvcc_flags": _build.NVCC_FLAGS}))
     return 0
 
