@@ -19,7 +19,7 @@ import torch
 
 from ..config import ModelConfig, NewtonConfig
 from ..model.emap import check_backend
-from .continuation import continue_branch, make_arclength_step
+from .continuation import check_group, continue_branch, make_arclength_step
 
 
 class Branch(NamedTuple):
@@ -56,7 +56,7 @@ def enumerate_branches(cfg: ModelConfig, noise: torch.Tensor, Z0, beta0, *,
                        jump_min_dist: float = 0.3,
                        dedupe_tol: float = 0.05,
                        callback: Optional[Callable] = None,
-                       **walk_kw) -> list[Branch]:
+                       group=None, **walk_kw) -> list[Branch]:
     """Enumerate the solution families reachable from ``(Z0, beta0)``.
 
     Walks the seed branch both ways with the guarded corrector; new
@@ -71,6 +71,9 @@ def enumerate_branches(cfg: ModelConfig, noise: torch.Tensor, Z0, beta0, *,
       noise: the ``(R, N)`` noise of every walk (common random numbers).
       beta0, sigma, param: as :func:`.continuation.continue_branch`.
       callback: ``f(branch_index, step_index, ArcStep)`` per step.
+      group: shard the frozen corrector over its ranks (a frozen
+        ``ncfg.fd_mode`` only, as the JAX package's ``branches.py:129-135``;
+        another is refused).
       **walk_kw: passed to :func:`.continuation.continue_branch`.
 
     Returns:
@@ -82,10 +85,11 @@ def enumerate_branches(cfg: ModelConfig, noise: torch.Tensor, Z0, beta0, *,
                             fd_mode="exact")
     dt_, dev = cfg.torch_dtype, noise.device
     check_backend(evolve_backend)
+    check_group(ncfg, group)
     fixed, free0 = (sigma, beta0) if param == "beta" else (beta0, sigma)
     # one corrector for every walk and every end probe
     probe = make_arclength_step(cfg, noise, fixed, param, ncfg,
-                                evolve_backend)
+                                evolve_backend, group)
 
     known_pts: list[np.ndarray] = []
     branches: list[Branch] = []

@@ -20,6 +20,11 @@ parameter ``(beta, sigma)`` is ``beta + sigma * noise``, so ``dF/dsigma``
 is the derivative of one realisation of the map.  The port runs eagerly:
 the JAX package's cached programs and their identity guards have no
 counterpart.
+
+Sharding (``group=``, a :class:`..parallel.sharding.ShardGroup`), as in
+the JAX package, covers the frozen bordered corrector only: each rank
+discovers and replays its block of realisations of every stencil point.
+A group with another corrector is refused.
 """
 
 from __future__ import annotations
@@ -184,13 +189,17 @@ def next_tangent(y_new: torch.Tensor, y_prev: torch.Tensor,
 
 def make_arclength_step(cfg: ModelConfig, noise: torch.Tensor, fixed,
                         param: str, ncfg: NewtonConfig,
-                        evolve_backend: str = "auto") -> Callable:
+                        evolve_backend: str = "auto",
+                        group=None) -> Callable:
     """The corrector ``(y_prev, tangent, ds) -> NewtonResult`` of a walk at
     held value ``fixed``: the frozen bordered corrector for the frozen
     modes, else :func:`arclength_step` on the extended residual (the JAX
-    package's ``make_arclength_step_jit`` and its frozen counterpart)."""
+    package's ``make_arclength_step_jit`` and its frozen counterpart).
+    Only the frozen corrector takes a ``group``."""
     if ncfg.fd_mode in FROZEN_MODES:
-        return make_arclength_step_frozen(cfg, noise, fixed, param, ncfg)
+        return make_arclength_step_frozen(cfg, noise, fixed, param, ncfg,
+                                          group=group)
+    check_group(ncfg, group)
     G = make_extended_residual(cfg, noise, fixed, param=param,
                                evolve_backend=evolve_backend)
 
@@ -199,8 +208,18 @@ def make_arclength_step(cfg: ModelConfig, noise: torch.Tensor, fixed,
     return step
 
 
+def check_group(ncfg: NewtonConfig, group) -> None:
+    """Refuse a group with a corrector that does not shard (the JAX
+    package's ``continuation.py:297-304``)."""
+    if group is not None and ncfg.fd_mode not in FROZEN_MODES:
+        raise ValueError(
+            "sharded branch walks need a frozen corrector: pass "
+            f"fd_mode in {FROZEN_MODES} (got {ncfg.fd_mode!r}) or no group")
+
+
 def make_arclength_step_frozen(cfg: ModelConfig, noise: torch.Tensor, fixed,
-                               param: str, ncfg: NewtonConfig) -> Callable:
+                               param: str, ncfg: NewtonConfig,
+                               group=None) -> Callable:
     """The bordered corrector with a fused frozen-outcome FD Jacobian, for
     ``ncfg.fd_mode`` ``"frozen"`` or ``"frozen-fwd"`` (both difference the
     central stencil).
@@ -213,6 +232,9 @@ def make_arclength_step_frozen(cfg: ModelConfig, noise: torch.Tensor, fixed,
     is exact: its Jacobian row is the tangent.  No backtracking: walkers
     probe past branch ends by design and count on failing correctors
     being cheap.
+
+    ``group``: each rank discovers and replays its block of realisations
+    (``noise`` is the full noise on every rank); the sums are all-reduced.
     """
     _check_param(param)
     dev, dt_ = noise.device, cfg.torch_dtype
@@ -230,13 +252,15 @@ def make_arclength_step_frozen(cfg: ModelConfig, noise: torch.Tensor, fixed,
         def evaluate(y, ep):
             params = params_of(param, y[-1], fixed, cfg, dev)
             outcome = compute_discrete_outcome(
-                cfg, params, beta_from_noise(cfg, params, noise), y[:-1])
+                cfg, params, beta_from_noise(cfg, params, noise), y[:-1],
+                group)
             ep_t = torch.tensor(ep, dtype=dt_, device=dev)
             e = ep_t * torch.eye(n1, dtype=dt_, device=dev)
             pts = torch.cat([y[None], y[None] + e, y[None] - e])
             Fv = frozen_schedule_map_batched(
                 cfg, params_of(param, pts[:, -1], fixed, cfg, dev), None,
-                pts[:, :-1], *outcome, noise=noise, params_batched=True)
+                pts[:, :-1], *outcome, noise=noise, params_batched=True,
+                group=group)
             JF = (Fv[1:n1 + 1] - Fv[n1 + 1:]).T / (2.0 * ep_t)
             arc = (y - y_prev) @ tangent - ds
             return (torch.cat([Fv[0], arc[None]]),
@@ -257,7 +281,8 @@ def continue_branch(cfg: ModelConfig, noise: torch.Tensor, Z0, beta0, *,
                     grow: float = 1.3, shrink: float = 0.5,
                     max_step_factor: Optional[float] = 4.0,
                     tangent0=None, callback=None, reject_hook=None,
-                    step: Optional[Callable] = None) -> list[ArcStep]:
+                    step: Optional[Callable] = None,
+                    group=None) -> list[ArcStep]:
     """Walk a solution branch with adaptive pseudo-arclength steps.
 
     Starts from a converged point ``(Z0, beta0)`` and returns the accepted
@@ -282,16 +307,19 @@ def continue_branch(cfg: ModelConfig, noise: torch.Tensor, Z0, beta0, *,
         but was rejected by ``max_step_factor`` (an observed tunnel).
       step: a corrector of :func:`make_arclength_step` to use (the branch
         enumerator shares one); built from the other arguments if None.
+      group: shard the frozen corrector over its ranks (a frozen
+        ``ncfg.fd_mode`` only; another is refused).
     """
     if ncfg is None:
         ncfg = NewtonConfig(tolerance=1e-9, max_iterations=12,
                             fd_mode="exact")
     _check_param(param)
+    check_group(ncfg, group)
     dt_, dev = cfg.torch_dtype, noise.device
     fixed, free0 = (sigma, beta0) if param == "beta" else (beta0, sigma)
     if step is None:
         step = make_arclength_step(cfg, noise, fixed, param, ncfg,
-                                   evolve_backend)
+                                   evolve_backend, group)
     y = torch.cat([torch.as_tensor(Z0, dtype=dt_, device=dev).reshape(-1),
                    torch.tensor([float(free0)], dtype=dt_, device=dev)])
     tangent = (torch.as_tensor(tangent0, dtype=dt_, device=dev)

@@ -30,13 +30,22 @@ numbers, as the JAX CLI's walkers keep one unsplit key).  Exact Jacobians
 
 Run:  python -m armadillocudalinearinterpolation_torch.cli.driver --help
 
-``--shard`` (the JAX package's mesh-sharded solves) is not ported: the
-parser has no such flag.
+``--shard N`` (the JAX package's mesh-sharded solves) starts N ranks here
+(``torch.multiprocessing``, ``spawn``; :func:`..parallel.sharding.run_ranks`)
+that split the realisations: NCCL where every rank has a card of its own,
+gloo on the CPU or where ranks share a card.  Every rank makes the step's
+full draw from the same seed and keeps its rows, so the numbers are the
+unsharded run's up to the reassociated ensemble sum.  Rank 0 alone prints,
+writes checkpoints, stage dumps (of the whole ensemble, on its own) and
+profiles.  It shards the sweep (plain, ``--staged`` and the frozen modes)
+and the frozen arclength and branch correctors; elsewhere it is ignored
+with a warning, as in the JAX CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from typing import Callable, Optional
@@ -115,6 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="certified root-find window in lanes (multiple of "
                         "128; 0 = all lanes); its results equal every "
                         "lane's")
+    p.add_argument("--shard", type=int, default=0, metavar="N",
+                   help="shard solves over N ranks started here (the "
+                        "realisation axis, torch.distributed: NCCL with a "
+                        "card per rank, else gloo; the same numbers up to "
+                        "the reassociated ensemble sum). Applies to the "
+                        "sweep (plain, --staged, frozen modes) and the "
+                        "frozen --arclength/--enumerate-branches "
+                        "correctors. 0 or 1 = unsharded")
     p.add_argument("--staged", action="store_true",
                    help="solve each sweep step with the staged hybrid-"
                         "precision recipe (f32 Newton -> frozen-schedule "
@@ -255,12 +272,56 @@ def main(argv=None, *, draw: Optional[Callable] = None,
         print("error: no CUDA device is available; the CLI runs on the "
               "card (pass --cpu to run on the CPU)", file=sys.stderr)
         return 2
+    if args.shard < 0:
+        return _error(f"error: --shard must be >= 0; got {args.shard}")
+    if args.shard > args.realisations:
+        return _error(f"error: --shard {args.shard} ranks for "
+                      f"{args.realisations} realisations: a rank would "
+                      "hold none")
+    if args.shard > 1 and shard_ignored(args):
+        # fold remaps to central FD (Moore-Spence rows), boundary pins the
+        # exact f64 path, and the non-frozen walkers' correctors do not
+        # shard: say so instead of silently walking unsharded
+        print("warning: --shard is ignored here (only the frozen "
+              "arclength/branch correctors shard: --arclength/"
+              "--enumerate-branches with --fd-mode frozen or frozen-fwd)",
+              file=sys.stderr)
+        args.shard = 0
+    if args.shard > 1:
+        from ..parallel import run_ranks
+        rcs = run_ranks(_rank_run, args.shard, args, draw, noise,
+                        device="cpu" if args.cpu else "cuda")
+        return rcs[0]
+    return _profiled_run(args, draw, noise)
+
+
+def shard_ignored(args) -> bool:
+    """Whether ``--shard`` has no sharded path in this mode: the fold and
+    boundary trackers, and the arclength and branch walkers without a
+    frozen corrector (the JAX CLI's ``cli/driver.py:400-411``)."""
+    return bool(args.track_fold or args.track_boundary or (
+        (args.arclength or args.enumerate_branches)
+        and args.fd_mode not in FROZEN_MODES))
+
+
+def _profiled_run(args, draw, noise, sharded: bool = False) -> int:
     if args.profile:
         with trace(args.profile):
-            rc = _run(args, draw, noise)
+            rc = _run(args, draw, noise, sharded)
         print(f"profiler trace written to {args.profile}/")
         return rc
-    return _run(args, draw, noise)
+    return _run(args, draw, noise, sharded)
+
+
+def _rank_run(args, draw, noise) -> int:
+    """One rank of a ``--shard`` run: rank 0 prints and profiles, the
+    others run silent (an error still reaches the parent, which stops
+    every rank and raises it)."""
+    import torch.distributed as dist
+    if dist.get_rank() > 0:
+        sys.stdout = sys.stderr = open(os.devnull, "w")
+        args.profile = None
+    return _profiled_run(args, draw, noise, sharded=True)
 
 
 def _error(msg: str) -> int:
@@ -268,7 +329,8 @@ def _error(msg: str) -> int:
     return 2
 
 
-def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
+def _run(args, draw: Optional[Callable] = None, noise=None,
+         sharded: bool = False) -> int:
     if args.max_events is not None and args.max_events <= 0:
         raise SystemExit(f"--max-events must be positive, "
                          f"got {args.max_events}")
@@ -312,6 +374,12 @@ def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
                         print_output=not args.quiet, fd_mode=args.fd_mode)
     if len(args.guess) != args.spikes:
         return _error(f"error: --guess needs {args.spikes} values")
+    group = None
+    if sharded:
+        from ..parallel import ShardGroup
+        group = ShardGroup(cfg.n_real)
+    # rank 0 alone writes checkpoints and dumps
+    writer = group is None or group.rank == 0
     Z = torch.tensor(args.guess, dtype=cfg.torch_dtype, device=dev)
     beta = args.beta
     if draw is None:
@@ -422,11 +490,11 @@ def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
     f0 = event_driven_map(cfg, params,
                           beta_from_noise(cfg, params, noise) if walker
                           else draw(start, params), Z,
-                          evolve_backend=smoke_backend)
+                          evolve_backend=smoke_backend, group=group)
     print(f"ComputeF smoke test: |f| = {float(torch.linalg.vector_norm(f0)):.6e} "
           f"({time.perf_counter() - t0:.2f}s incl. kernel build)")
 
-    if args.debug_dump:
+    if args.debug_dump and writer:
         dump_map_stages(cfg, params, draw(start, params), Z, args.debug_dump)
         print(f"stage dumps written to {args.debug_dump}/")
 
@@ -435,9 +503,10 @@ def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
     if args.track_boundary:
         return run_boundary(args, cfg, ncfg, noise, Z, beta)
     if args.enumerate_branches:
-        return run_enumerate(args, cfg, ncfg, noise, Z, beta)
+        return run_enumerate(args, cfg, ncfg, noise, Z, beta, group)
     if args.arclength:
-        return run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start)
+        return run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start,
+                             group)
 
     if args.staged:
         # An unspecified --stage2-fd resolves to the library default
@@ -466,16 +535,18 @@ def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
             return newton_solve_staged(cfg, p, z, beta=b,
                                        tolerance=args.tol,
                                        stage2_ncfg=stage2_ncfg,
-                                       evolve_backend=args.evolve_backend)
+                                       evolve_backend=args.evolve_backend,
+                                       group=group)
     elif frozen:
         # fused frozen-outcome solves on the fp64 replay map: one batched
         # stencil replay per iteration, host-driven
         def solve(p, b, z):
-            return newton_solve_frozen(cfg, p, b, z, ncfg)
+            return newton_solve_frozen(cfg, p, b, z, ncfg, group)
     else:
         def solve(p, b, z):
             F = make_residual_fn(cfg, p, 0, device=dev, beta=b,
-                                 evolve_backend=args.evolve_backend)
+                                 evolve_backend=args.evolve_backend,
+                                 group=group)
             return newton_solve(F, z, ncfg)
 
     # (bench.py's sweep deliberately differs on FAILED steps: it retries
@@ -519,7 +590,8 @@ def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
                              or frozen)
             ev = compute_eigenvalues(
                 make_residual_fn(cfg, params, 0, device=dev, beta=b,
-                                 evolve_backend=args.evolve_backend),
+                                 evolve_backend=args.evolve_backend,
+                                 group=group),
                 res.solution, ProblemType.EQUATION_FREE,
                 jacobian=res.jacobian if exported_real else None,
                 epsilon=args.fd_eps)
@@ -529,7 +601,7 @@ def _run(args, draw: Optional[Callable] = None, noise=None) -> int:
             print(f"  eigenvalues: {np.array2string(eigenvalues, precision=4)}"
                   f" -> {verdict} ({n_unstable} unstable)")
 
-        if ckpt is not None:
+        if ckpt is not None and writer:
             ckpt.save(ContinuationStep(
                 index=i, beta=beta, solution=sol,
                 residual_norm=float(res.residual_norm), converged=ok,
@@ -558,8 +630,10 @@ def _walk_params(args, p: float, device) -> MapParams:
     return MapParams.create(p, args.sigma, dtype=args.dtype, device=device)
 
 
-def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start) -> int:
-    """Pseudo-arclength branch walk (``--arclength``)."""
+def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start,
+                  group=None) -> int:
+    """Pseudo-arclength branch walk (``--arclength``); ``group`` shards
+    the frozen corrector."""
     from ..analysis.continuation import continue_branch
 
     # on resume keep walking the same way: the secant of the last two
@@ -599,14 +673,15 @@ def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start) -> int:
             ev = compute_eigenvalues(
                 make_residual_fn(cfg, _walk_params(args, b, noise.device),
                                  0, device=noise.device, noise=noise,
-                                 evolve_backend=args.evolve_backend),
+                                 evolve_backend=args.evolve_backend,
+                                 group=group),
                 step.y[:-1], ProblemType.EQUATION_FREE, epsilon=args.fd_eps)
             eigenvalues = np.asarray(ev)
             n_unstable = int(count_unstable(ev, ProblemType.EQUATION_FREE))
             if not args.quiet:
                 print(f"  -> {'unstable' if n_unstable else 'stable'} "
                       f"({n_unstable} unstable)")
-        if ckpt is not None:
+        if ckpt is not None and (group is None or group.rank == 0):
             ckpt.save(ContinuationStep(
                 index=start + i, beta=b, solution=sol,
                 residual_norm=float(step.residual_norm),
@@ -618,7 +693,7 @@ def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start) -> int:
         ds=args.ds, n_steps=args.steps, direction=args.direction, ncfg=ncfg,
         evolve_backend=args.evolve_backend,
         max_step_factor=None if args.allow_branch_jump else 4.0,
-        tangent0=tangent0, callback=on_step)
+        tangent0=tangent0, callback=on_step, group=group)
     print(f"arclength: {len(steps)} accepted steps"
           + ("" if len(steps) == args.steps else " (branch end reached)"))
     return 0
@@ -626,8 +701,6 @@ def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start) -> int:
 
 def run_fold(args, cfg, ncfg, noise, Z, beta) -> int:
     """Two-parameter fold continuation (``--track-fold``)."""
-    import os
-
     from ..analysis.fold import null_direction, track_fold
 
     # the initial null direction from the exact Jacobian at the near-fold
@@ -671,8 +744,6 @@ def run_fold(args, cfg, ncfg, noise, Z, beta) -> int:
 
 def run_boundary(args, cfg, ncfg, noise, Z, beta) -> int:
     """Two-parameter existence-boundary trace (``--track-boundary``)."""
-    import os
-
     from ..analysis.boundary import track_existence_boundary
 
     acc = []
@@ -709,10 +780,9 @@ def run_boundary(args, cfg, ncfg, noise, Z, beta) -> int:
     return 0
 
 
-def run_enumerate(args, cfg, ncfg, noise, Z, beta) -> int:
-    """Branch-switching enumeration (``--enumerate-branches``)."""
-    import os
-
+def run_enumerate(args, cfg, ncfg, noise, Z, beta, group=None) -> int:
+    """Branch-switching enumeration (``--enumerate-branches``); ``group``
+    shards the frozen corrector."""
     from ..analysis.branches import enumerate_branches
 
     beta0, sigma = ((beta, args.sigma) if args.arc_param == "beta"
@@ -729,7 +799,7 @@ def run_enumerate(args, cfg, ncfg, noise, Z, beta) -> int:
         cfg, noise, _host(Z), beta0, sigma=sigma, param=args.arc_param,
         ds=args.ds, n_steps=args.steps, ncfg=ncfg,
         evolve_backend=args.evolve_backend, max_branches=args.max_branches,
-        callback=None if args.quiet else on_step)
+        callback=None if args.quiet else on_step, group=group)
 
     for b, br in enumerate(branches):
         end = "step limit" if br.hit_step_limit else "branch end"
@@ -737,7 +807,7 @@ def run_enumerate(args, cfg, ncfg, noise, Z, beta) -> int:
         print(f"branch {b} [{br.origin}]: {len(br.points)} points, "
               f"{args.arc_param} in [{p.min():.4f}, {p.max():.4f}], "
               f"c in [{c.min():.4f}, {c.max():.4f}] ({end})")
-        if args.checkpoint:
+        if args.checkpoint and (group is None or group.rank == 0):
             os.makedirs(args.checkpoint, exist_ok=True)
             np.savez(os.path.join(args.checkpoint, f"branch_{b}.npz"),
                      points=br.points, origin=br.origin,

@@ -34,6 +34,13 @@ Points with their own parameters: where ``params.beta`` and
 is ``(P * R, N)``, ``params.beta[p] + params.sigma[p] * noise[r]`` from one
 ``(R, N)`` ``noise`` (common random numbers), and every evolve row has its
 own rates.
+
+Sharding (``group=``, a :class:`..parallel.sharding.ShardGroup`): every
+rank takes the full draw and the same points, keeps its own block of
+realisations (:meth:`~..parallel.sharding.ShardGroup.rows`), runs lift,
+evolve and restriction on them, and adds its masked position sums and
+accept counts into ONE all-reduce before the division; every rank returns
+the same ``f``.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from .evolve_cuda import evolve_ensemble_cuda
 from .lift import initial_spike_indices, lift
 from .replay import (compute_schedule, evolve_ensemble_replay,
                      schedule_width, select_replay, select_replay_tangent)
-from .restrict import masked_ensemble_mean, restrict_positions
+from .restrict import (masked_ensemble_mean, masked_sums, reduce_mean,
+                       restrict_positions)
 from ..solvers.newton import JacobianUnavailable
 
 EVOLVE_BACKENDS = ("auto", "cuda", "torch", "replay")
@@ -189,7 +197,7 @@ def assemble_residual(cfg: ModelConfig, U: torch.Tensor,
 def event_driven_map(cfg: ModelConfig, params: MapParams,
                      beta: torch.Tensor, Z: torch.Tensor, *,
                      with_diagnostics: bool = False,
-                     evolve_backend: str = "auto"):
+                     evolve_backend: str = "auto", group=None):
     """Evaluate the map residual ``f = F(Z)``.
 
     Args:
@@ -203,6 +211,9 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
       with_diagnostics: also return :class:`MapDiagnostics`.
       evolve_backend: ``"auto"``, ``"cuda"``, ``"torch"`` or ``"replay"``
         (:func:`select_evolve`).
+      group: a :class:`..parallel.sharding.ShardGroup`: this rank evolves
+        its block of the realisations and the mean is all-reduced (the
+        diagnostics then hold this rank's rows).
 
     Returns:
       ``f`` of the shape of ``Z``, and the diagnostics if asked for.
@@ -218,10 +229,14 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
                          f"{cfg.torch_dtype} (or ({P * R}, {cfg.n_neurons}) "
                          f"for points with their own parameters); got "
                          f"{tuple(beta.shape)} {beta.dtype}")
+    if group is not None:
+        cfg, beta = group.localize(cfg, beta, P=P)
+        R = cfg.n_real
     U, init_ind, v0, s0, res, positions = run_pipeline(
         cfg, params, Zs, beta, evolve_backend=evolve_backend)
     positions = positions.reshape(P, R, M)
-    u_mean, count = masked_ensemble_mean(positions, res.accept.reshape(P, R))
+    u_mean, count = masked_ensemble_mean(positions, res.accept.reshape(P, R),
+                                         group)
     f = assemble_residual(cfg, U, u_mean)
     if not with_diagnostics:
         return f[0] if single else f
@@ -239,11 +254,16 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
 
 
 def compute_discrete_outcome(cfg: ModelConfig, params: MapParams,
-                             beta: torch.Tensor, Z: torch.Tensor):
+                             beta: torch.Tensor, Z: torch.Tensor, group=None):
     """The map's discrete outcome at one point ``Z`` (``(n_spikes,)``):
     ``(schedule, n_events, init_ind)``, the ``(R, E)`` int32 firing order
     of the f32 discovery pass, its ``(R,)`` event counts and the ``(M,)``
-    seeding indices, for :func:`frozen_schedule_map_batched`."""
+    seeding indices, for :func:`frozen_schedule_map_batched`.  With a
+    ``group`` the schedule covers this rank's realisations only (the
+    firing order is per row: discovery needs no collective); pass the same
+    group to :func:`frozen_schedule_map_batched`."""
+    if group is not None:
+        cfg, beta = group.localize(cfg, beta)
     Zs = Z.to(dtype=cfg.torch_dtype, device=beta.device)[None, :]
     init_ind = initial_spike_indices(cfg, Zs)
     v0, s0 = lift(cfg, params, z_to_u(Zs))
@@ -256,8 +276,8 @@ def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
                                 sched: torch.Tensor, n_sched: torch.Tensor,
                                 init_ind: torch.Tensor, *,
                                 noise: Optional[torch.Tensor] = None,
-                                params_batched: bool = False
-                                ) -> torch.Tensor:
+                                params_batched: bool = False,
+                                group=None) -> torch.Tensor:
     """The smooth piece of ``F`` around one frozen discrete outcome, at a
     ``(P, n_spikes)`` stack of points, in ONE replay of ``P * R`` rows.
 
@@ -273,10 +293,18 @@ def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
     unused and may be None): one replay of ``P * R`` rows, each with its
     own rates.
 
+    ``group``: ``sched`` and ``n_sched`` are this rank's (from
+    :func:`compute_discrete_outcome` with the same group); the rank
+    replays its block of realisations of every point and the mean is
+    all-reduced.
+
     Returns:
       ``(P, n_spikes)`` residuals.
     """
-    P, R, M = Zs.shape[0], cfg.n_real, cfg.n_spikes
+    P = Zs.shape[0]
+    if group is not None:
+        cfg, noise, beta = group.localize(cfg, noise, beta, P=P)
+    R, M = cfg.n_real, cfg.n_spikes
     if params_batched:
         if noise is None:
             raise ValueError("params_batched needs the draw's noise")
@@ -287,7 +315,8 @@ def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
     res = replay(cfg, sched, n_sched, v0.contiguous(), s0.contiguous(),
                  beta.contiguous(), init_ind, n_real=R)
     positions = restrict_positions(cfg, res).reshape(P, R, M)
-    u_mean, _ = masked_ensemble_mean(positions, res.accept.reshape(P, R))
+    u_mean, _ = masked_ensemble_mean(positions, res.accept.reshape(P, R),
+                                     group)
     return assemble_residual(cfg, U, u_mean)
 
 
@@ -320,22 +349,23 @@ def direct_schedule(cfg: ModelConfig, evolve: Callable, v0, s0, beta,
     return res, sched, times
 
 
-def _restrict_residual(cfg: ModelConfig, res: EvolveResult, P: int):
-    """``(last_time, crossed_time, U) -> (P, n_spikes)`` residual on the
-    discrete outcome of ``res`` (indices and accept held fixed): the
-    function whose ``torch.func.jvp`` is the restriction's tangent."""
+def _masked_sums(cfg: ModelConfig, res: EvolveResult, P: int):
+    """``(h, count)``: ``h(last_time, crossed_time)`` is the ``(P,
+    n_spikes)`` sum of the restricted positions over the accepted rows of
+    the discrete outcome of ``res`` (indices and accept held fixed), the
+    function whose ``torch.func.jvp`` is the restriction's tangent;
+    ``count`` the ``(P,)`` accept counts (:func:`.restrict.masked_sums`)."""
     R, M = cfg.n_real, cfg.n_spikes
     accept = res.accept.reshape(P, R)
 
-    def g(last_time, crossed_time, U):
+    def h(last_time, crossed_time):
         out = EvolveResult(last_ind=res.last_ind, last_time=last_time,
                            crossed_ind=res.crossed_ind,
                            crossed_time=crossed_time, accept=res.accept,
                            n_events=res.n_events)
-        positions = restrict_positions(cfg, out).reshape(P, R, M)
-        u_mean, _ = masked_ensemble_mean(positions, accept)
-        return assemble_residual(cfg, U, u_mean)
-    return g
+        return masked_sums(restrict_positions(cfg, out).reshape(P, R, M),
+                           accept)[0]
+    return h, accept.sum(dim=-1, dtype=torch.float64)
 
 
 def lift_tangents(cfg: ModelConfig, params: MapParams, Zs: torch.Tensor,
@@ -380,31 +410,25 @@ def rate_base(cfg: ModelConfig, noise: Optional[torch.Tensor],
     return noise.to(torch.float64).contiguous()
 
 
-def _check_same_outcome(res: EvolveResult, res_t: EvolveResult) -> None:
-    """Refuse a tangent replay whose discrete outcome differs from the
-    direct evolve's whose log it replayed: the same rows accepted and, on
-    them, the same recorded trajectory slots.  Else ``J`` would belong to
-    another smooth piece than ``F``: raise :class:`JacobianUnavailable`.
-    (The replay takes the evolve's logged times, so its times are the
-    evolve's bit for bit and the two outcomes cannot part; the check
-    stays as the guard of that contract.)"""
+def _outcome_mismatch(res: EvolveResult, res_t: EvolveResult
+                      ) -> torch.Tensor:
+    """The rows where a tangent replay's discrete outcome differs from the
+    direct evolve's whose log it replayed: accept, or on an accepted row
+    the recorded trajectory slots.  Where any row differs, ``J`` would
+    belong to another smooth piece than ``F``: :func:`map_jvp` raises
+    :class:`JacobianUnavailable`.  (The replay takes the evolve's logged
+    times, so its times are the evolve's bit for bit and the two outcomes
+    cannot part; the check stays as the guard of that contract.)"""
     slots = ((res.last_ind == res_t.last_ind)
              & (res.crossed_ind == res_t.crossed_ind)).all(dim=1)
-    bad = (res.accept != res_t.accept) | (res.accept & ~slots)
-    if bool(bad.any()):
-        rows = torch.nonzero(bad).flatten().tolist()
-        raise JacobianUnavailable(
-            "the tangent replay of the fp64 evolve's firing order reached "
-            f"another discrete outcome on rows {rows[:8]} (accept or "
-            "recorded slots differ); its Jacobian would not be the direct "
-            "map's: take evolve_backend='replay' at this point")
+    return (res.accept != res_t.accept) | (res.accept & ~slots)
 
 
 def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
             Zs: torch.Tensor, dZ: torch.Tensor,
             dparam: Optional[torch.Tensor] = None, *,
             param: Optional[str] = None, evolve_backend: str = "auto",
-            beta: Optional[torch.Tensor] = None):
+            beta: Optional[torch.Tensor] = None, group=None):
     """The map at a stack of points and its derivatives along ``D``
     directions, exact (no finite differences).
 
@@ -425,6 +449,12 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
         discovery's log and ``F`` from the tangent replay's primal (the
         replay map).
       beta: the draw itself, in place of ``noise`` (no sigma direction).
+      group: a :class:`..parallel.sharding.ShardGroup`: this rank replays
+        its block of the realisations; with the accept mask held fixed the
+        mean's tangent is the all-reduced masked tangent sum over the same
+        global count, so the masked sums, their tangents, the counts and
+        the outcome check's count go into ONE all-reduce.  The lift's
+        tangents are replicated.
 
     Returns:
       ``(F (P, n), JV (D, P, n))``.  Float64 configurations only: the
@@ -441,7 +471,10 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
     f64 = torch.float64
     dev = (noise if noise is not None else beta).device
     Zs = Zs.to(dtype=f64, device=dev)
-    P, R, D = Zs.shape[0], cfg.n_real, dZ.shape[0]
+    P, D = Zs.shape[0], dZ.shape[0]
+    if group is not None:
+        cfg, noise, beta = group.localize(cfg, noise, beta, P=P)
+    R = cfg.n_real
     dZ = dZ.to(dtype=f64, device=dev)
     dp = (torch.zeros(D, P, dtype=f64, device=dev) if dparam is None
           else dparam.to(dtype=f64, device=dev).expand(D, P))
@@ -474,16 +507,29 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
         cfg, sched.contiguous(), n_ev.contiguous(), v0, s0, beta, init_ind,
         dv0, ds0, base, dp.contiguous(), n_real=R, times=times)
     if res is None:
-        res = res_t
+        res, n_bad = res_t, torch.zeros((), dtype=f64, device=dev)
     else:
-        _check_same_outcome(res, res_t)
+        n_bad = _outcome_mismatch(res, res_t).sum(dtype=f64)
 
     # the restriction's tangent: indices and accept take none
-    g = _restrict_residual(cfg, res, P)
-    f = g(res.last_time, res.crossed_time, U)
-    jv = torch.func.vmap(lambda a, b, c: torch.func.jvp(
-        g, (res.last_time, res.crossed_time, U), (a, b, c))[1])(
-            d_last, d_crossed, dU)
+    h, count = _masked_sums(cfg, res, P)
+    times = (res.last_time, res.crossed_time)
+    sums = h(*times)
+    dsums = torch.func.vmap(
+        lambda a, b: torch.func.jvp(h, times, (a, b))[1])(d_last, d_crossed)
+    u_mean, count, dsums, n_bad = reduce_mean(sums, count, group, dsums,
+                                              n_bad)
+    if float(n_bad):
+        raise JacobianUnavailable(
+            "the tangent replay of the fp64 evolve's firing order reached "
+            f"another discrete outcome on {int(n_bad)} row(s) (accept or "
+            "recorded slots differ); its Jacobian would not be the direct "
+            "map's: take evolve_backend='replay' at this point")
+    du_mean = dsums / count[..., None]
+    f = assemble_residual(cfg, U, u_mean)
+    jv = torch.func.vmap(lambda a, b: torch.func.jvp(
+        lambda U_, u_: assemble_residual(cfg, U_, u_), (U, u_mean),
+        (a, b))[1])(dU, du_mean)
     return f, jv
 
 
@@ -494,19 +540,22 @@ class ResidualFn:
 
     Attributes: ``cfg``, ``params``, ``beta`` (the ``(R, N)`` draw),
     ``noise`` (its ``(R, N)`` noise, or None where only the draw was
-    given) and ``evolve_backend``.
+    given), ``evolve_backend`` and ``group`` (a
+    :class:`..parallel.sharding.ShardGroup`, or None).
     """
 
     def __init__(self, cfg: ModelConfig, params: MapParams,
                  beta: torch.Tensor, noise: Optional[torch.Tensor],
-                 evolve_backend: str):
+                 evolve_backend: str, group=None):
         self.cfg, self.params = cfg, params
         self.beta, self.noise = beta, noise
         self.evolve_backend = evolve_backend
+        self.group = group
 
     def __call__(self, Z: torch.Tensor) -> torch.Tensor:
         return event_driven_map(self.cfg, self.params, self.beta, Z,
-                                evolve_backend=self.evolve_backend)
+                                evolve_backend=self.evolve_backend,
+                                group=self.group)
 
     def value_and_jacobian(self, Z: torch.Tensor,
                            param: Optional[str] = None):
@@ -523,7 +572,8 @@ class ResidualFn:
                         eye[:, None, :n],
                         eye[:, n:].reshape(D, 1) if param else None,
                         param=param, evolve_backend=self.evolve_backend,
-                        beta=self.beta if self.noise is None else None)
+                        beta=self.beta if self.noise is None else None,
+                        group=self.group)
         return f[0], jv[:, 0, :].T
 
 
@@ -531,7 +581,8 @@ def make_residual_fn(cfg: ModelConfig, params: MapParams,
                      seed_or_generator: Union[int, torch.Generator], *,
                      device, beta: Optional[torch.Tensor] = None,
                      noise: Optional[torch.Tensor] = None,
-                     evolve_backend: str = "auto") -> ResidualFn:
+                     evolve_backend: str = "auto",
+                     group=None) -> ResidualFn:
     """Close the map over one draw into a residual oracle ``F: Z -> f``
     (a :class:`ResidualFn`, which also offers the exact Jacobian).
 
@@ -540,7 +591,9 @@ def make_residual_fn(cfg: ModelConfig, params: MapParams,
     draw ``params.beta + params.sigma * noise`` reused by every
     evaluation; ``noise=`` injects a given ``(R, N)`` noise, ``beta=`` a
     given draw (then ``dF/dsigma`` is not offered).  ``F`` takes one point
-    ``(n,)`` or a stack ``(P, n)``.
+    ``(n,)`` or a stack ``(P, n)``.  ``group``: every evaluation is
+    sharded over its ranks (:func:`event_driven_map`); every rank makes
+    the same full draw and keeps its rows at each call.
     """
     device = torch.device(device)
     if beta is not None and noise is not None:
@@ -559,4 +612,4 @@ def make_residual_fn(cfg: ModelConfig, params: MapParams,
     else:
         beta = beta.to(dtype=cfg.torch_dtype, device=device).contiguous()
     select_evolve(evolve_backend, device)   # reject a bad name up front
-    return ResidualFn(cfg, params, beta, noise, evolve_backend)
+    return ResidualFn(cfg, params, beta, noise, evolve_backend, group)

@@ -22,6 +22,12 @@ The draw is made once, at the accurate dtype; stage 1 takes it cast to
 f32, so all stages solve ONE realisation of the stochastic map.  The port
 runs eagerly: there are no cached programs, no cache identity guards and
 no ahead-of-time warm-up.
+
+``group=`` (a :class:`..parallel.sharding.ShardGroup`; the JAX package's
+``mesh=``) shards every stage over the ranks: each rank runs K1, K2 and
+K2T on its block of realisations (its rows of every stencil point) and
+the ensemble sums are all-reduced, so every rank takes the same steps on
+the same ``f``.
 """
 
 from __future__ import annotations
@@ -168,7 +174,7 @@ def frozen_newton_loop(evaluate: Callable, x0: torch.Tensor,
 
 def newton_solve_frozen(cfg: ModelConfig, params: MapParams,
                         beta: torch.Tensor, x0: torch.Tensor,
-                        ncfg: NewtonConfig) -> NewtonResult:
+                        ncfg: NewtonConfig, group=None) -> NewtonResult:
     """Newton on the replay map with a fused residual + frozen-schedule FD
     Jacobian.
 
@@ -187,6 +193,8 @@ def newton_solve_frozen(cfg: ModelConfig, params: MapParams,
       x0: initial iterate.
       ncfg: tolerance, max_iterations, damping, print_output,
         divergence_factor, fd_mode and fd_epsilon.
+      group: shard discovery and replay over its ranks (``beta`` is the
+        full draw on every rank).
     """
     if ncfg.fd_mode not in FROZEN_MODES:
         raise ValueError(f"newton_solve_frozen takes fd_mode in "
@@ -201,19 +209,22 @@ def newton_solve_frozen(cfg: ModelConfig, params: MapParams,
         e = ep_t * eye
         pts = (torch.cat([z[None, :], z[None, :] + e]) if fwd else
                torch.cat([z[None, :], z[None, :] + e, z[None, :] - e]))
-        vals = frozen_schedule_map_batched(cfg, params, beta, pts, *outcome)
+        vals = frozen_schedule_map_batched(cfg, params, beta, pts, *outcome,
+                                           group=group)
         f = vals[0]
         jac = ((vals[1:] - f).T / ep_t if fwd
                else (vals[1:n + 1] - vals[n + 1:]).T / (2.0 * ep_t))
         return f, jac
 
     def evaluate(z, ep):
-        return fused(z, ep, compute_discrete_outcome(cfg, params, beta, z))
+        return fused(z, ep, compute_discrete_outcome(cfg, params, beta, z,
+                                                     group))
 
     def score(z):
-        outcome = compute_discrete_outcome(cfg, params, beta, z)
+        outcome = compute_discrete_outcome(cfg, params, beta, z, group)
         return (frozen_schedule_map_batched(cfg, params, beta, z[None, :],
-                                            *outcome)[0], outcome)
+                                            *outcome, group=group)[0],
+                outcome)
 
     return frozen_newton_loop(evaluate, x0.to(dtype=dt_, device=dev), ncfg,
                               frozen_epsilon(ncfg), backtrack=True,
@@ -280,7 +291,8 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
                         stage2_tolerance: Optional[float] = None,
                         polish_iterations: int = 40,
                         evolve_backend: str = "replay",
-                        basin_radius: float = 1.0) -> NewtonResult:
+                        basin_radius: float = 1.0,
+                        group=None) -> NewtonResult:
     """Solve the map to ``tolerance`` by the staged recipe.
 
     Args:
@@ -299,6 +311,9 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
         ``"torch"``.
       basin_radius: max-norm distance from ``Z0`` beyond which a converged
         result still triggers the rescue pass (``math.inf`` disables it).
+      group: a :class:`..parallel.sharding.ShardGroup`: every stage sharded
+        over its ranks; each rank passes (or draws from ``seed``) the same
+        full draw and gets the same result.
 
     Returns:
       :class:`NewtonResult` of the best polished iterate; ``iterations`` is
@@ -330,7 +345,8 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
                          sigma=params.sigma.to(torch.float32))
     F32 = make_residual_fn(
         cfg32, params32, 0, device=device, beta=beta.to(torch.float32),
-        evolve_backend="torch" if evolve_backend == "torch" else "auto")
+        evolve_backend="torch" if evolve_backend == "torch" else "auto",
+        group=group)
     r32 = newton_solve(F32, Z0.to(dtype=torch.float32, device=device),
                        stage1_ncfg)
     # a non-finite or 0-iteration stage 1 falls back to the guess at full
@@ -341,14 +357,14 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
         handoff, stage1_iters = z_guess, 0
 
     F_acc = make_residual_fn(cfg, params, 0, device=device, beta=beta,
-                             evolve_backend=evolve_backend)
+                             evolve_backend=evolve_backend, group=group)
     frozen = stage2_ncfg.fd_mode in FROZEN_MODES
 
     def accurate_solve(x_start):
         """Stage 2 and the polish from ``x_start``: ``(pol, jac, iters)``."""
         if frozen:
             res = newton_solve_frozen(cfg, params, beta, x_start,
-                                      stage2_ncfg)
+                                      stage2_ncfg, group)
         else:
             res = newton_solve(F_acc, x_start, stage2_ncfg)
         # a diverged stage 2 must not poison the polish

@@ -87,6 +87,15 @@ the default root tolerance (the fold at 20.3245 to 5e-3),
 ``--enumerate-branches`` and
 ``--track-boundary`` (the bracket around 16.0144) under a wall cap, and
 three arclength steps at config 4 with the exact and the frozen corrector.
+Early on, K1 f64 at sigma 0 is held to the native fp64 oracle
+(``oracle``: ``oracle.py`` builds ``native/edmap_oracle.cpp`` with g++) at
+``tests/test_oracle.py``'s configuration, 1e-12.  Last, ensemble sharding
+(``shard``, ``parallel/sharding.py``): config 3 over 2 gloo ranks sharing
+the card and over a world of 1 on NCCL against the unsharded evaluation,
+config 4's staged solves (the replay default and an exact stage 2: K1, K2
+and K2T in every rank) over 2 ranks against the same solves unsharded,
+and the CLI with ``--shard 2`` at config 5's flags in its own process
+against the ``cli`` phase's steps, with walls and the all-reduce's ms.
 Every ``kernels`` entry carries its bound (bytes or
 operations over the H100 SXM data sheet's peaks) and, where one PyTorch
 call computes the same function, that call's time (``library_ms``).  Each
@@ -249,6 +258,22 @@ WALK_BARS = {"artifact_solution": 1e-6, "artifact_end_beta": 1e-3,
 ARTIFACT_END_BETA, FOLD_BETA, BOUNDARY_BETA = 16.01445, 20.3245, 16.0144
 WALKER_WALL_CAP_S = 240
 CONFIG4_ARC = {"steps": 3, "ds": 0.1, "tolerance": 1e-7}
+# shard: config 3 (MAP_*) over 2 gloo ranks sharing the card and over a
+# world of 1 on NCCL against the unsharded evaluation on the same draw, at
+# the f32 residual bar of TARGETS; config 4's staged solves over 2 ranks
+# (the replay default, K1 and K2, and the replay with an exact stage 2, K1,
+# K2T and K2) against the same solves unsharded; the CLI with --shard 2 at
+# config 5's flags against the cli phase's unsharded steps
+SHARD_WORLD, SHARD_MAP_EVALS, SHARD_CLI_STEPS = 2, 5, 3
+SHARD_BARS = {"config3_residual": 2e-5, "config4_solution": 1e-8,
+              "config4_residual": STAGED_TOL, "cli_solution": 1e-5}
+# oracle: K1 f64 at sigma 0 against the native fp64 oracle (oracle.py) at
+# tests/test_oracle.py's fixtures (tests/conftest.py: N=512, R=4), at the
+# Driver.cu guess and at the converged root, 1e-12 (tests/test_oracle.py:31)
+ORACLE_CONFIG = {"n_neurons": 512, "n_real": 4, "dtype": "float64"}
+ORACLE_POINTS = {"guess": INITIAL_GUESS,
+                 "root": (0.32623663, 0.71936722, 1.36899475)}
+ORACLE_BAR = 1e-12
 # repairs: more grids than one launch dimension holds, more 1-D batches,
 # and N above one CTA's shared memory (f64 evolve: 8273, replay: 8297)
 REPAIR_GRIDS = (65536, 6, 9, 5)
@@ -2110,6 +2135,21 @@ def sweep(pt, torch, dev, smi):
     return row
 
 
+def config5_cli_argv():
+    """The CLI's flags for config 5 with ``--stability``, before the FD
+    step and the step count."""
+    return ["--neurons", str(CONFIG5["n_neurons"]),
+            "--realisations", str(CONFIG5["n_real"]),
+            "--dtype", CONFIG5["dtype"], "--sigma", str(SIGMA),
+            "--evolve-window", str(CONFIG5["evolve_window"]),
+            "--tol", str(SWEEP_NEWTON["tolerance"]),
+            "--max-iter", str(SWEEP_NEWTON["max_iterations"]),
+            "--stability", "--quiet"]
+
+
+CLI_EPS = ["--fd-eps", str(SLICE_FD_EPSILON)]
+
+
 def run_cli(driver, argv):
     """``driver.main(argv)`` with its standard output captured."""
     buf = io.StringIO()
@@ -2135,13 +2175,7 @@ def cli(pt, torch, dev, smi):
         evolve_cuda, replay_cuda)
     from armadillocudalinearinterpolation_torch.utils.checkpoint import (
         ContinuationCheckpoint)
-    c5 = ["--neurons", str(CONFIG5["n_neurons"]),
-          "--realisations", str(CONFIG5["n_real"]),
-          "--dtype", CONFIG5["dtype"], "--sigma", str(SIGMA),
-          "--evolve-window", str(CONFIG5["evolve_window"]),
-          "--tol", str(SWEEP_NEWTON["tolerance"]),
-          "--max-iter", str(SWEEP_NEWTON["max_iterations"]),
-          "--stability", "--quiet"]
+    c5 = config5_cli_argv()
     c4 = ["--staged", "--dtype", "float64",
           "--neurons", str(CONFIG4["n_neurons"]),
           "--realisations", str(CONFIG4["n_real"]), "--sigma", str(SIGMA),
@@ -2152,7 +2186,7 @@ def cli(pt, torch, dev, smi):
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         dirs = {k: str(Path(tmp) / k) for k in ("resumed", "full", "staged")}
-        eps = ["--fd-eps", str(SLICE_FD_EPSILON)]
+        eps = CLI_EPS
         plan = {"first_3": c5 + eps + ["--steps", "3", "--checkpoint",
                                        dirs["resumed"]],
                 "resume_1": c5 + eps + ["--steps", "1", "--checkpoint",
@@ -2187,6 +2221,9 @@ def cli(pt, torch, dev, smi):
            "resumed_vs_uninterrupted_step3_max_diff": diff,
            "indices": {k: [s.index for s in v] for k, v in steps.items()},
            "config5_fd_3e-4_converged": [s.converged for s in full],
+           "config5_fd_3e-4_first_3": [
+               {"converged": s.converged, "solution": s.solution.tolist()}
+               for s in resumed[:SHARD_CLI_STEPS]],
            "config5_fd_3e-4_n_unstable": [s.n_unstable for s in full],
            "staged": [{"beta": s.beta, "converged": s.converged,
                        "residual_norm": s.residual_norm,
@@ -2754,6 +2791,269 @@ def walkers(pt, torch, dev, smi: str, z_config4):
     return row
 
 
+def shard_config3(pt, torch, dev, group, n_evals):
+    """Config 3's map on the card, sharded over ``group`` (None: one
+    process): ``n_evals`` timed evaluations after a warm-up, with the launch
+    counts set to 0 just before and read just after."""
+    cfg = pt.ModelConfig(n_neurons=MAP_N, n_real=MAP_R, dtype="float32",
+                         evolve_window=MAP_WINDOW)
+    params = pt.MapParams.create(BETA, SIGMA, dtype="float32", device=dev)
+    beta = pt.sample_beta(cfg, params,
+                          torch.Generator(device=dev).manual_seed(0))
+    F = pt.make_residual_fn(cfg, params, 0, device=dev, beta=beta,
+                            evolve_backend="cuda", group=group)
+    z = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
+    F(z)
+    torch.cuda.synchronize()
+    if group is not None:
+        group.reduces, group.reduce_seconds = 0, 0.0
+    zero_launch_counts()
+    walls = []
+    for _ in range(n_evals):
+        t0 = time.perf_counter()
+        f = F(z)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = {"f": f.cpu().tolist(), "wall_ms": walls,
+           "wall_ms_median": statistics.median(walls),
+           "launches": launch_counts()}
+    if group is not None:
+        out.update(block=[group.lo, group.hi], backend=group.backend,
+                   allreduces=group.reduces,
+                   allreduce_ms_mean=group.reduce_seconds * 1e3
+                   / group.reduces)
+    return out
+
+
+def shard_config4(pt, torch, dev, group):
+    """Config 4's staged solves to 1e-8 on the card, sharded over
+    ``group`` (None: one process), each twice (a rank's first solve pays
+    its process's first uses; the second is timed as warm) with the launch
+    counts set to 0 just before the warm solve and read just after: the
+    replay default (K1, K2) and the replay with an exact stage 2 (K1, K2T,
+    K2)."""
+    cfg = pt.ModelConfig(**CONFIG4)
+    params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
+    beta = pt.sample_beta(cfg, params,
+                          torch.Generator(device=dev).manual_seed(0))
+    z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
+    exact2 = pt.NewtonConfig(tolerance=0.9 * STAGED_TOL, max_iterations=8,
+                             fd_mode="exact")
+    out = {}
+    for name, ncfg2 in (("replay_frozen_fwd_default", None),
+                        ("replay_exact_stage2", exact2)):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            if group is not None:
+                group.reduces, group.reduce_seconds = 0, 0.0
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            res = pt.newton_solve_staged(cfg, params, z0, beta=beta,
+                                         tolerance=STAGED_TOL,
+                                         stage2_ncfg=ncfg2, group=group)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"wall_s": walls[1], "wall_s_first": walls[0],
+                     "launches": launch_counts(),
+                     "converged": res.converged,
+                     "iterations": res.iterations,
+                     "residual_norm": res.residual_norm,
+                     "solution": res.solution.double().cpu().tolist()}
+        if group is not None:
+            out[name].update(allreduces=group.reduces,
+                             allreduce_ms_total=group.reduce_seconds * 1e3)
+    return out
+
+
+def shard_rank(with_config4: bool):
+    """One rank of the ``shard`` phase (started by ``run_ranks``): config
+    3's map over this rank's rows, then config 4's staged solves."""
+    import torch
+    import armadillocudalinearinterpolation_torch as pt
+    from armadillocudalinearinterpolation_torch.parallel import ShardGroup
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"config3": shard_config3(pt, torch, dev, ShardGroup(MAP_R),
+                                    SHARD_MAP_EVALS)}
+    if with_config4:
+        out["config4"] = shard_config4(pt, torch, dev,
+                                       ShardGroup(CONFIG4["n_real"]))
+    return out
+
+
+def shard(pt, torch, dev, smi: str, cli_steps):
+    """Ensemble sharding on the one card: config 3 over 2 gloo ranks
+    sharing it and over a world of 1 on NCCL (the path of one card per
+    rank), each against the unsharded evaluation on the same draw (f32
+    residual bar), every rank the same ``f``; config 4's staged solves
+    over 2 ranks against the same solves unsharded (converged, |F| <= 1e-8
+    recomputed by a fresh unsharded replay map, solutions within 1e-8);
+    the CLI with ``--shard 2`` at config 5's flags for 3 steps, in its own
+    process, against the cli phase's unsharded steps (``cli_steps``).
+    Walls, the all-reduce's ms and each rank's K1, K2 and K2T launches (the
+    counts set to 0 in each rank just before its path, read just after).
+    One card: no gain is expected."""
+    from armadillocudalinearinterpolation_torch.parallel import run_ranks
+    from armadillocudalinearinterpolation_torch.utils.checkpoint import (
+        ContinuationCheckpoint)
+    bars = SHARD_BARS
+    unsharded = {"config3": shard_config3(pt, torch, dev, None,
+                                          SHARD_MAP_EVALS),
+                 "config4": shard_config4(pt, torch, dev, None)}
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, SHARD_WORLD, True, device="cuda")
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = run_ranks(shard_rank, 1, False, device="cuda")[0]
+    nccl_s = time.perf_counter() - t0
+
+    f3 = torch.tensor(unsharded["config3"]["f"])
+    config3 = {}
+    for name, outs in (("gloo_2", ranks), ("nccl_1", [nccl])):
+        fs = [torch.tensor(o["config3"]["f"]) for o in outs]
+        config3[name] = {
+            "max_abs_diff": float((fs[0] - f3).abs().max()),
+            "every_rank_same_f": all(torch.equal(f, fs[0]) for f in fs),
+            "backend": outs[0]["config3"]["backend"],
+            "blocks": [o["config3"]["block"] for o in outs],
+            "wall_ms_median_rank0": outs[0]["config3"]["wall_ms_median"],
+            "allreduce_ms_mean_rank0":
+                outs[0]["config3"]["allreduce_ms_mean"],
+            "allreduces_rank0": outs[0]["config3"]["allreduces"],
+            "launches": [o["config3"]["launches"] for o in outs]}
+
+    cfg4 = pt.ModelConfig(**CONFIG4)
+    params4 = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
+    beta4 = pt.sample_beta(cfg4, params4,
+                           torch.Generator(device=dev).manual_seed(0))
+    config4 = {}
+    for name, want in unsharded["config4"].items():
+        got = [o["config4"][name] for o in ranks]
+        sol = torch.tensor(got[0]["solution"], dtype=torch.float64,
+                           device=dev)
+        f = pt.event_driven_map(cfg4, params4, beta4, sol,
+                                evolve_backend="replay")
+        config4[name] = {
+            "converged": [g["converged"] for g in got],
+            "iterations": got[0]["iterations"],
+            "iterations_unsharded": want["iterations"],
+            "residual_norm": got[0]["residual_norm"],
+            "recomputed_norm": float(torch.linalg.vector_norm(f)),
+            "solution_diff_vs_unsharded": float(max(
+                abs(a - b) for a, b in zip(got[0]["solution"],
+                                           want["solution"]))),
+            "every_rank_same_solution": all(
+                g["solution"] == got[0]["solution"] for g in got),
+            "wall_s_rank0": got[0]["wall_s"],
+            "wall_s_unsharded": want["wall_s"],
+            "wall_s_first_rank0": got[0]["wall_s_first"],
+            "wall_s_first_unsharded": want["wall_s_first"],
+            "allreduces_rank0": got[0]["allreduces"],
+            "allreduce_ms_total_rank0": got[0]["allreduce_ms_total"],
+            "launches": [g["launches"] for g in got],
+            "launches_unsharded": want["launches"]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = config5_cli_argv() + CLI_EPS + [
+            "--steps", str(SHARD_CLI_STEPS), "--checkpoint", tmp,
+            "--shard", str(SHARD_WORLD)]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli.driver",
+                               *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=900)
+        cli_s = time.perf_counter() - t0
+        steps = ContinuationCheckpoint(tmp).load_all() \
+            if proc.returncode == 0 else []
+    cli_diff = (max(float(abs(s.solution - torch.tensor(
+        ref["solution"]).numpy()).max()) for s, ref in zip(steps, cli_steps))
+        if len(steps) == len(cli_steps) == SHARD_CLI_STEPS else math.inf)
+    cli_row = {"rc": proc.returncode, "wall_s": cli_s,
+               "converged": [s.converged for s in steps],
+               "converged_unsharded": [s["converged"] for s in cli_steps],
+               "max_solution_diff_vs_cli_phase": cli_diff,
+               "backend_line": [ln for ln in proc.stderr.splitlines()
+                                if ln.startswith("sharding:")],
+               "lines": [ln for ln in proc.stdout.splitlines()
+                         if ln.startswith(("step", "ComputeF"))]}
+
+    launches = {}
+    for o in ranks:
+        for part in (o["config3"]["launches"],
+                     *(r["launches"] for r in o["config4"].values())):
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+    row = {"phase": "shard", "world": SHARD_WORLD, "bars": bars,
+           "config3": config3,
+           "config3_unsharded_wall_ms_median":
+               unsharded["config3"]["wall_ms_median"],
+           "config4": config4, "cli": cli_row,
+           "spawn_and_run_s": {"gloo_2": gloo_s, "nccl_1": nccl_s},
+           "launches": launches, "card": smi}
+    emit(row)
+    for name, r in config3.items():
+        require(r["max_abs_diff"] <= bars["config3_residual"]
+                and r["every_rank_same_f"],
+                f"shard config 3 {name}: {r['max_abs_diff']} from the "
+                f"unsharded f, same on every rank: {r['every_rank_same_f']}")
+    require(config3["gloo_2"]["backend"] == "gloo"
+            and config3["nccl_1"]["backend"] == "nccl",
+            f"shard backends: {config3['gloo_2']['backend']}, "
+            f"{config3['nccl_1']['backend']}")
+    for name, r in config4.items():
+        require(all(r["converged"]) and r["every_rank_same_solution"]
+                and r["recomputed_norm"] <= bars["config4_residual"],
+                f"shard config 4 {name}: converged {r['converged']}, "
+                f"recomputed |F| {r['recomputed_norm']}")
+        require(r["solution_diff_vs_unsharded"] <= bars["config4_solution"],
+                f"shard config 4 {name}: {r['solution_diff_vs_unsharded']} "
+                "from the unsharded solution")
+    require(proc.returncode == 0, f"shard cli: rc {proc.returncode}\n"
+            f"{proc.stderr[-3000:]}")
+    require(cli_diff <= bars["cli_solution"]
+            and cli_row["converged"] == cli_row["converged_unsharded"],
+            f"shard cli: {cli_diff} from the cli phase's steps")
+    for k in ("evolve_kernel", "replay_kernel", "replay_tangent_kernel"):
+        require(launches.get(k, 0) > 0, f"shard: no {k} launched in the "
+                "ranks")
+    return row
+
+
+def oracle_phase(pt, torch, dev, smi: str):
+    """K1 f64 at sigma 0 against the native fp64 oracle (``oracle.py``, a
+    separate C++ map built with g++ from ``native/edmap_oracle.cpp``) at
+    ``tests/test_oracle.py``'s configuration, 1e-12 at each point, with
+    the launch counts set to 0 just before the K1 evaluations and read just
+    after."""
+    from armadillocudalinearinterpolation_torch import oracle
+    cfg = pt.ModelConfig(**ORACLE_CONFIG)
+    params = pt.MapParams.create(BETA, 0.0, dtype="float64", device=dev)
+    beta = torch.full((cfg.n_real, cfg.n_neurons), BETA,
+                      dtype=torch.float64, device=dev)
+    Z = torch.tensor(list(ORACLE_POINTS.values()), dtype=torch.float64,
+                     device=dev)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    f = pt.event_driven_map(cfg, params, beta, Z, evolve_backend="cuda")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    want = [oracle.compute_f(cfg, params, z.cpu()) for z in Z]
+    oracle_s = time.perf_counter() - t0
+    diffs = {name: float((f[i].cpu() - want[i]).abs().max())
+             for i, name in enumerate(ORACLE_POINTS)}
+    row = {"phase": "oracle", "config": ORACLE_CONFIG, "bar": ORACLE_BAR,
+           "max_abs_diff": diffs, "f_k1": f.cpu().tolist(),
+           "f_oracle": [w.tolist() for w in want],
+           "oracle_build_and_eval_s": oracle_s, "launches": launches,
+           "card": smi}
+    emit(row)
+    require(launches["evolve_kernel"] > 0, "oracle: K1 was not launched")
+    for name, d in diffs.items():
+        require(d <= ORACLE_BAR, f"oracle: K1 f64 at {name} is {d} from "
+                "the oracle")
+    return row
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG}/ is not beside this script; run it from "
@@ -2819,6 +3119,7 @@ def main() -> int:
         entry["device_us"] = m["evolve_device_us_mean_of_3"][layer]
         entry["evolve_window"] = window
 
+    orc = oracle_phase(pt, torch, dev, smi)
     interp_kernels = interp2d(pt, torch, dev, smi)
     interp1d_kernels = interp1d(pt, torch, dev, smi)
     repairs(pt, torch, dev)
@@ -2827,22 +3128,26 @@ def main() -> int:
     cl = cli(pt, torch, dev, smi)
     tangent_kernel, ex_launches, z_config4 = exact(pt, torch, dev, smi)
     wk = walkers(pt, torch, dev, smi, z_config4)
+    sh = shard(pt, torch, dev, smi, cl["config5_fd_3e-4_first_3"])
     # K1 runs on five paths: the Driver.cu slice (every lane), the config-3
     # map evaluation, the staged solve's f32 stage and discovery passes
     # (with its firing-order log), the config-5 sweeps and the CLI, all
     # four windowed; K2 on the staged solve and the CLI's staged run
     # (the walkers' CLI runs are at N=512 on every lane, their config-4
-    # steps windowed)
+    # steps windowed); the oracle check runs K1 f64 on every lane, the
+    # shard phase's ranks K1 windowed (config 3 and 4), K2 and K2T
     full["launches_by_path"] = {
         "slice": slice_launches,
-        "walkers": wk["launches_cli"]["evolve_kernel"]}
+        "walkers": wk["launches_cli"]["evolve_kernel"],
+        "oracle": orc["launches"]["evolve_kernel"]}
     full["launches"] = sum(full["launches_by_path"].values())
     windowed["launches_by_path"] = {
         "map_eval": m["launches"], "staged": log["launches"],
         "sweep": sw["launches"],
         "cli": cl["launches"]["evolve_kernel_windowed"],
         "exact": ex_launches["evolve_kernel"],
-        "walkers": wk["launches_config4"]["evolve_kernel"]}
+        "walkers": wk["launches_config4"]["evolve_kernel"],
+        "shard": sh["launches"]["evolve_kernel"]}
     windowed["launches"] = sum(windowed["launches_by_path"].values())
     windowed["log"] = log
     windowed["config5"] = {
@@ -2859,7 +3164,8 @@ def main() -> int:
         "cli": cl["launches"]["replay_kernel"],
         "exact": ex_launches["replay_kernel"],
         "walkers": wk["launches_cli"]["replay_kernel"]
-        + wk["launches_config4"]["replay_kernel"]}
+        + wk["launches_config4"]["replay_kernel"],
+        "shard": sh["launches"]["replay_kernel"]}
     replay_kernel["launches"] = sum(
         replay_kernel["launches_by_path"].values())
     kernels = [full, windowed]
@@ -2867,7 +3173,8 @@ def main() -> int:
     tangent_kernel["launches_by_path"] = {
         "exact": ex_launches["replay_tangent_kernel"],
         "walkers": wk["launches_cli"]["replay_tangent_kernel"]
-        + wk["launches_config4"]["replay_tangent_kernel"]}
+        + wk["launches_config4"]["replay_tangent_kernel"],
+        "shard": sh["launches"]["replay_tangent_kernel"]}
     tangent_kernel["launches"] = sum(
         tangent_kernel["launches_by_path"].values())
     kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel,

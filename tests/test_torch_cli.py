@@ -36,9 +36,12 @@ CPU = ["--cpu"] + ARGS
      "float64"),
     (CPU + ["--fd-mode", "frozen", "--evolve-backend", "torch"], "replay"),
     (CPU + ["--evolve-backend", "cuda"], "card"),
+    (CPU + ["--shard", "8"], "a rank would hold none"),
+    (CPU + ["--shard", "-1"], "--shard must be >= 0"),
 ], ids=["guess_arity", "resume_without_checkpoint", "staged_f32",
         "fd_mode_exact", "stage2_exact", "frozen_direct_backend",
-        "cuda_backend_on_cpu"])
+        "cuda_backend_on_cpu", "shard_above_realisations",
+        "negative_shard"])
 def test_cli_refusals(argv, message, capsys):
     """Each refusal exits 2 with its message, before any map evaluation."""
     assert driver.main(argv) == 2
@@ -48,17 +51,29 @@ def test_cli_refusals(argv, message, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--shard", "2"], ["--shard", "4"], ["--aot-warmup"],
-    ["--replay-jvp", "df64"], ["--shard", "8"], ["--shard", "0"],
-    ["--replay-jvp", "f32"], ["--replay-exp-mode", "small"],
-    ["--replay-exp-mode", "hoisted"], ["--replay-exp-mode", "cond"]])
+    ["--aot-warmup"], ["--replay-jvp", "df64"], ["--replay-jvp", "f32"],
+    ["--replay-exp-mode", "small"], ["--replay-exp-mode", "hoisted"],
+    ["--replay-exp-mode", "cond"]])
 def test_cli_refuses_unported_flags(flag, capsys):
-    """A flag of the JAX CLI that the port has not (or never will) is
+    """A flag of the JAX CLI that the port never takes (the TPU knobs) is
     refused by argparse with rc 2, never silently ignored."""
     with pytest.raises(SystemExit) as exit_:
         driver.main(CPU + flag)
     assert exit_.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_cli_flags_are_the_jax_cli_s_but_the_tpu_knobs():
+    """The two parsers' flags differ by exactly the three TPU knobs
+    (ROADMAP "Not to port"); ``--shard`` is in both."""
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+    jax_flags = flags(jax_driver.build_parser())
+    port_flags = flags(driver.build_parser())
+    assert jax_flags - port_flags == {"--aot-warmup", "--replay-exp-mode",
+                                      "--replay-jvp"}
+    assert port_flags - jax_flags == set()
+    assert "--shard" in port_flags
 
 
 def test_cli_without_cpu_needs_a_card(monkeypatch, capsys):

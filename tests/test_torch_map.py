@@ -133,6 +133,8 @@ def test_port_never_imports_jax():
             "import armadillocudalinearinterpolation_torch.analysis.fold; "
             "import armadillocudalinearinterpolation_torch.analysis.branches; "
             "import armadillocudalinearinterpolation_torch.analysis.boundary; "
+            "import armadillocudalinearinterpolation_torch.parallel.sharding; "
+            "import armadillocudalinearinterpolation_torch.oracle; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
             "'armadillocudalinearinterpolation_tpu'))); "

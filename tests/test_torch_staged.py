@@ -206,8 +206,9 @@ def test_stage1_takes_the_accurate_draw_cast_to_f32(monkeypatch):
     class Stop(Exception):
         pass
 
-    def spy(cfg, params_, seed, *, device, beta=None, evolve_backend):
-        seen.update(cfg=cfg, beta=beta, backend=evolve_backend)
+    def spy(cfg, params_, seed, *, device, beta=None, evolve_backend,
+            group=None):
+        seen.update(cfg=cfg, beta=beta, backend=evolve_backend, group=group)
         raise Stop
 
     monkeypatch.setattr(staged, "make_residual_fn", spy)
@@ -218,7 +219,7 @@ def test_stage1_takes_the_accurate_draw_cast_to_f32(monkeypatch):
     assert seen["cfg"].dtype == "float32" and seen["cfg"].root_tol == 1e-6
     assert seen["beta"].dtype == torch.float32
     assert torch.equal(seen["beta"], draw.float())
-    assert seen["backend"] == "auto"
+    assert seen["backend"] == "auto" and seen["group"] is None
 
 
 @pytest.fixture(scope="module")
