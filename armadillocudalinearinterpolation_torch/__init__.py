@@ -20,7 +20,11 @@ is the fifth; exact Jacobians (the tangent replay kernel K2T in
 ``csrc/replay.cu``, ``F.value_and_jacobian``, ``fd_mode="exact"``) and the
 walkers that use them (``analysis/``: pseudo-arclength continuation, fold
 tracking, branch enumeration, existence-boundary tracking, and their CLI
-modes) are the sixth.  This package never imports JAX.
+modes) are the sixth.  The map is forward-differentiable by PyTorch's own
+AD (``torch.func.jvp``, ``torch.func.jacfwd``, ``jacfwd_cols``,
+``torch.autograd.forward_ad``): K1, K2 and K2T are ``torch.library`` ops
+and the evolve an ``autograd.Function`` (``model/autodiff.py``).  This
+package never imports JAX.
 """
 
 from .config import ModelConfig, MapParams, NewtonConfig
@@ -53,7 +57,8 @@ from .model.emap import (
 )
 from .solvers.criterion import residual_norm_criterion, relative_criterion
 from .solvers.newton import (newton_solve, fd_jacobian, central_fd_jacobian,
-                             exact_jacobian, print_iteration_table,
+                             exact_jacobian, jacfwd_cols,
+                             print_iteration_table,
                              NewtonResult, frozen_jacobian_polish,
                              JacobianUnavailable)
 from .solvers.staged import newton_solve_frozen, newton_solve_staged
@@ -123,6 +128,7 @@ __all__ = [
     "fd_jacobian",
     "central_fd_jacobian",
     "exact_jacobian",
+    "jacfwd_cols",
     "JacobianUnavailable",
     "print_iteration_table",
     "NewtonResult",

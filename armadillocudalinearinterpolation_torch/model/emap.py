@@ -50,15 +50,16 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from ..config import ModelConfig, MapParams
+from .autodiff import (differentiable_evolve, direct_schedule,
+                       outcome_error, outcome_mismatch)
 from .evolve import EvolveResult
 from .evolve_batched import evolve_ensemble_batched
 from .evolve_cuda import evolve_ensemble_cuda
 from .lift import initial_spike_indices, lift
 from .replay import (compute_schedule, evolve_ensemble_replay,
-                     schedule_width, select_replay, select_replay_tangent)
+                     select_replay, select_replay_tangent)
 from .restrict import (masked_ensemble_mean, masked_sums, reduce_mean,
                        restrict_positions)
-from ..solvers.newton import JacobianUnavailable
 
 EVOLVE_BACKENDS = ("auto", "cuda", "torch", "replay")
 
@@ -168,22 +169,27 @@ def select_evolve(evolve_backend: str, device: torch.device) -> Callable:
 
 
 def run_pipeline(cfg: ModelConfig, params: MapParams, Z: torch.Tensor,
-                 beta: torch.Tensor, *, evolve_backend: str = "auto"):
+                 beta: torch.Tensor, *, evolve_backend: str = "auto",
+                 sharded: bool = False):
     """The lift -> evolve -> restrict stages for a stack ``Z`` of shape
     ``(P, n_spikes)``.
 
     Returns ``(U, init_ind, v0, s0, evolve_result, positions)`` with
     leading ``P`` axes; the evolve result and positions cover ``P * R``
     rows.  ``beta`` is ``(R, N)``, or ``(P * R, N)`` for points with their
-    own parameters (``params`` of ``(P,)`` tensors).
+    own parameters (``params`` of ``(P,)`` tensors).  Every stage is
+    forward-differentiable: the lift and the restriction as torch ops, the
+    evolve through :func:`.autodiff.differentiable_evolve` (``sharded``:
+    this is one rank's block of a sharded map, which refuses a tangent).
     """
     Z = Z.to(dtype=cfg.torch_dtype, device=beta.device)
     U = z_to_u(Z)
     init_ind = initial_spike_indices(cfg, Z)
     v0, s0 = lift(cfg, point_params(params, Z.shape[0]), U)
-    evolve = select_evolve(evolve_backend, beta.device)
-    res = evolve(cfg, v0.contiguous(), s0.contiguous(), beta.contiguous(),
-                 init_ind.contiguous(), n_real=cfg.n_real)
+    res = differentiable_evolve(
+        cfg, v0.contiguous(), s0.contiguous(), beta.contiguous(),
+        init_ind.contiguous(), evolve_backend=evolve_backend,
+        evolve=select_evolve(evolve_backend, beta.device), sharded=sharded)
     return U, init_ind, v0, s0, res, restrict_positions(cfg, res)
 
 
@@ -233,7 +239,8 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
         cfg, beta = group.localize(cfg, beta, P=P)
         R = cfg.n_real
     U, init_ind, v0, s0, res, positions = run_pipeline(
-        cfg, params, Zs, beta, evolve_backend=evolve_backend)
+        cfg, params, Zs, beta, evolve_backend=evolve_backend,
+        sharded=group is not None)
     positions = positions.reshape(P, R, M)
     u_mean, count = masked_ensemble_mean(positions, res.accept.reshape(P, R),
                                          group)
@@ -329,26 +336,6 @@ def frozen_schedule_map(cfg: ModelConfig, params: MapParams,
                                        n_sched, init_ind)[0]
 
 
-def direct_schedule(cfg: ModelConfig, evolve: Callable, v0, s0, beta,
-                    init_ind):
-    """The direct evolve with its firing-order log and time log:
-    ``(result, schedule, times)``, the logs wide enough for every row's
-    events (a row past :func:`.replay.schedule_width` columns is run again
-    with wider logs, so that no row of the direct map is rejected by the
-    replay of its own log)."""
-    rows = v0.shape[0] * cfg.n_real
-    E = schedule_width(cfg)
-    for _ in range(2):
-        times = torch.empty(rows, E, dtype=torch.float64, device=v0.device)
-        res, sched = evolve(cfg, v0, s0, beta, init_ind, record_schedule=E,
-                            n_real=cfg.n_real, event_times=times)
-        need = int(res.n_events.max()) if res.n_events.numel() else 0
-        if need <= E:
-            break
-        E = -(-need // 128) * 128
-    return res, sched, times
-
-
 def _masked_sums(cfg: ModelConfig, res: EvolveResult, P: int):
     """``(h, count)``: ``h(last_time, crossed_time)`` is the ``(P,
     n_spikes)`` sum of the restricted positions over the accepted rows of
@@ -408,20 +395,6 @@ def rate_base(cfg: ModelConfig, noise: Optional[torch.Tensor],
         return torch.ones(cfg.n_real, cfg.n_neurons, dtype=torch.float64,
                           device=device)
     return noise.to(torch.float64).contiguous()
-
-
-def _outcome_mismatch(res: EvolveResult, res_t: EvolveResult
-                      ) -> torch.Tensor:
-    """The rows where a tangent replay's discrete outcome differs from the
-    direct evolve's whose log it replayed: accept, or on an accepted row
-    the recorded trajectory slots.  Where any row differs, ``J`` would
-    belong to another smooth piece than ``F``: :func:`map_jvp` raises
-    :class:`JacobianUnavailable`.  (The replay takes the evolve's logged
-    times, so its times are the evolve's bit for bit and the two outcomes
-    cannot part; the check stays as the guard of that contract.)"""
-    slots = ((res.last_ind == res_t.last_ind)
-             & (res.crossed_ind == res_t.crossed_ind)).all(dim=1)
-    return (res.accept != res_t.accept) | (res.accept & ~slots)
 
 
 def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
@@ -509,7 +482,7 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
     if res is None:
         res, n_bad = res_t, torch.zeros((), dtype=f64, device=dev)
     else:
-        n_bad = _outcome_mismatch(res, res_t).sum(dtype=f64)
+        n_bad = outcome_mismatch(res, res_t).sum(dtype=f64)
 
     # the restriction's tangent: indices and accept take none
     h, count = _masked_sums(cfg, res, P)
@@ -520,11 +493,7 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
     u_mean, count, dsums, n_bad = reduce_mean(sums, count, group, dsums,
                                               n_bad)
     if float(n_bad):
-        raise JacobianUnavailable(
-            "the tangent replay of the fp64 evolve's firing order reached "
-            f"another discrete outcome on {int(n_bad)} row(s) (accept or "
-            "recorded slots differ); its Jacobian would not be the direct "
-            "map's: take evolve_backend='replay' at this point")
+        raise outcome_error(int(n_bad))
     du_mean = dsums / count[..., None]
     f = assemble_residual(cfg, U, u_mean)
     jv = torch.func.vmap(lambda a, b: torch.func.jvp(

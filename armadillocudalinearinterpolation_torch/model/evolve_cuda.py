@@ -1,4 +1,12 @@
-"""The ensemble evolve as a hand-written CUDA kernel (``csrc/evolve.cu``).
+"""The ensemble evolve as a hand-written CUDA kernel (``csrc/evolve.cu``,
+K1), registered as the op ``atorch::evolve`` (:func:`evolve_op`).
+
+The op is functional (it returns new tensors) and picks its kernel by
+device: K1 for CUDA tensors, the plain version
+(:func:`.evolve_batched.evolve_ensemble_batched`) for CPU ones; a CUDA
+tensor never reaches the plain version.  Its fake kernel gives the output
+shapes, so the op traces under fake tensors.  The launch itself is a
+``ctypes`` call into the library that :mod:`.._build` compiles with nvcc.
 
 :func:`evolve_ensemble_cuda` takes the same arguments and returns the same
 :class:`.evolve.EvolveResult` as the plain versions
@@ -18,6 +26,9 @@ wrapper allocates; the kernel body is the same.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import json
 from typing import Optional, Tuple, Union
 
 import torch
@@ -26,7 +37,7 @@ from .. import _build
 from ..config import ModelConfig
 from .evolve import (EvolveResult, beta_rows, check_event_times,
                      check_evolve_inputs)
-from .evolve_batched import window_pad
+from .evolve_batched import evolve_ensemble_batched, window_pad
 
 LAUNCHES = 0
 
@@ -100,7 +111,8 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
                          event_times: Optional[torch.Tensor] = None
                          ) -> Union[EvolveResult,
                                     Tuple[EvolveResult, torch.Tensor]]:
-    """Ensemble evolve of ``P`` points x ``R`` realisations on the card.
+    """Ensemble evolve of ``P`` points x ``R`` realisations on the card
+    (the op ``atorch::evolve`` on CUDA tensors; CPU tensors are refused).
 
     Args:
       v0, s0: ``(P, N)`` lifted states.
@@ -121,37 +133,102 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
       point ``p`` and realisation ``r``; with ``record_schedule`` the pair
       ``(result, schedule)``.
     """
-    global LAUNCHES
-    check_evolve_inputs(cfg, v0, s0, beta, init_ind, n_real)
-    E = int(record_schedule)
-    if E < 0:
-        raise ValueError(f"record_schedule must be >= 0; got {E}")
     if v0.device.type != "cuda":
         raise ValueError("evolve_ensemble_cuda needs CUDA tensors; got "
                          f"{v0.device} (use the plain evolve on the CPU)")
+    P = v0.shape[0]
+    R = n_real_of(beta, n_real)
+    if fallbacks is not None and (fallbacks.shape != (P * R,)
+                                  or fallbacks.dtype != torch.int32
+                                  or fallbacks.device != v0.device
+                                  or not fallbacks.is_contiguous()):
+        raise ValueError(f"fallbacks must be a contiguous ({P * R},) int32 "
+                         f"tensor on {v0.device}")
+    E = int(record_schedule)
+    check_event_times(event_times, P * R, E, v0.device)
+    out = evolve_op(config_key(cfg), v0, s0, beta, init_ind, R, E,
+                    event_times is not None, fallbacks is not None)
+    if fallbacks is not None:
+        fallbacks.copy_(out[8])
+    if event_times is not None:
+        event_times.copy_(out[7])
+    result = EvolveResult(*out[:6])
+    return (result, out[6]) if E else result
+
+
+def n_real_of(beta: torch.Tensor, n_real) -> int:
+    """The realisations R an op takes: ``n_real``, or ``beta``'s rows (the
+    op's kernels check that they fit the inputs)."""
+    return beta.shape[0] if n_real is None else int(n_real)
+
+
+@functools.lru_cache(maxsize=None)
+def config_key(cfg: ModelConfig) -> str:
+    """``cfg`` as the string the ops take (an op's arguments are tensors
+    and scalars); :func:`config_of` inverts it."""
+    return json.dumps(dataclasses.asdict(cfg), sort_keys=True)
+
+
+@functools.lru_cache(maxsize=None)
+def config_of(key: str) -> ModelConfig:
+    """The :class:`ModelConfig` of :func:`config_key`'s string."""
+    return ModelConfig(**json.loads(key))
+
+
+def _evolve_outputs(v0, init_ind, n_real, record_schedule, event_times,
+                    fallbacks):
+    """The op's nine outputs, uninitialised on ``v0``'s device: the
+    result's six, the log (``(rows, E)``, E = 0 without one), the time
+    log (``(rows, E)``, or ``(rows, 0)``) and the fallback counts
+    (``(rows,)``, or ``(0,)``)."""
+    rows, M = v0.shape[0] * n_real, init_ind.shape[-1]
+    E, i32 = record_schedule, torch.int32
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=v0.device)
+    return (empty((rows, M), i32), empty((rows, M), v0.dtype),
+            empty((rows, M), i32), empty((rows, M), v0.dtype),
+            empty((rows,), torch.bool), empty((rows,), i32),
+            empty((rows, E), i32),
+            empty((rows, E if event_times else 0), torch.float64),
+            empty((rows if fallbacks else 0,), i32))
+
+
+@torch.library.custom_op("atorch::evolve", mutates_args=(),
+                         device_types="cuda")
+def evolve_op(cfg: str, v0: torch.Tensor, s0: torch.Tensor,
+              beta: torch.Tensor, init_ind: torch.Tensor, n_real: int,
+              record_schedule: int, event_times: bool, fallbacks: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 as an op: ``cfg`` a :func:`config_key` string, ``n_real`` the
+    realisations R, ``record_schedule`` E >= 0 the log's width, and
+    whether to return the time log and the fallback counts.  Returns the
+    :class:`EvolveResult`'s six tensors, the log, the time log and the
+    fallback counts (:func:`_evolve_outputs` gives the shapes).  Its CUDA
+    kernel launches K1 on the current stream (no synchronise) and raises
+    on any input the kernel does not take; its CPU kernel is the plain
+    version, :func:`.evolve_batched.evolve_ensemble_batched`."""
+    global LAUNCHES
+    c = config_of(cfg)
+    check_evolve_inputs(c, v0, s0, beta, init_ind, n_real)
+    E = int(record_schedule)
+    if E < 0:
+        raise ValueError(f"record_schedule must be >= 0; got {E}")
     for name, x in (("v0", v0), ("s0", s0), ("beta", beta),
                     ("init_ind", init_ind)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     P, N = v0.shape
-    (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
+    (R, per_row), M = beta_rows(beta, P, n_real), c.n_spikes
     dev, dt_ = v0.device, v0.dtype
-    if fallbacks is not None and (fallbacks.shape != (P * R,)
-                                  or fallbacks.dtype != torch.int32
-                                  or fallbacks.device != dev
-                                  or not fallbacks.is_contiguous()):
-        raise ValueError(f"fallbacks must be a contiguous ({P * R},) int32 "
-                         f"tensor on {dev}")
-    check_event_times(event_times, P * R, E, dev)
-    W = cfg.evolve_window
-    last_ind = torch.empty(P * R, M, dtype=torch.int32, device=dev)
-    last_time = torch.empty(P * R, M, dtype=dt_, device=dev)
-    crossed_ind = torch.empty(P * R, M, dtype=torch.int32, device=dev)
-    crossed_time = torch.empty(P * R, M, dtype=dt_, device=dev)
-    accept = torch.empty(P * R, dtype=torch.bool, device=dev)
-    n_events = torch.empty(P * R, dtype=torch.int32, device=dev)
-    sched = (torch.zeros(P * R, E, dtype=torch.int32, device=dev) if E
-             else None)
+    out = _evolve_outputs(v0, init_ind, R, E, event_times, fallbacks)
+    if E:
+        out[6].zero_()
+    if event_times:
+        out[7].zero_()
+    W = c.evolve_window
     scratch = (None if row_fits_shared(N, M, dt_, "evolve",
                                        shared_optin_bytes(dev)) else
                torch.empty(P * R * row_elems(N), dtype=dt_, device=dev))
@@ -161,22 +238,42 @@ def evolve_ensemble_cuda(cfg: ModelConfig, v0: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, _ENTRY[dt_])(
             v0.data_ptr(), s0.data_ptr(), init_ind.data_ptr(),
-            beta.data_ptr(), last_ind.data_ptr(), last_time.data_ptr(),
-            crossed_ind.data_ptr(), crossed_time.data_ptr(),
-            accept.data_ptr(), n_events.data_ptr(),
-            sched.data_ptr() if E else None,
-            None if event_times is None else event_times.data_ptr(),
+            beta.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), out[3].data_ptr(), out[4].data_ptr(),
+            out[5].data_ptr(), out[6].data_ptr() if E else None,
+            out[7].data_ptr() if event_times else None,
             None if scratch is None else scratch.data_ptr(),
-            None if fallbacks is None else fallbacks.data_ptr(),
+            out[8].data_ptr() if fallbacks else None,
             P, R, N, M, E, W, window_pad(W) if W else 0, int(per_row),
             default_threads(N, P * R, torch.cuda.get_device_properties(
                 dev).multi_processor_count, dt_),
-            cfg.counter_max, cfg.vth, cfg.drive, cfg.vth - cfg.drive, cfg.a1,
-            cfg.a2, cfg.b1, cfg.b2, cfg.dx, cfg.t_horizon, cfg.root_tol,
+            c.counter_max, c.vth, c.drive, c.vth - c.drive, c.a1,
+            c.a2, c.b1, c.b2, c.dx, c.t_horizon, c.root_tol,
             stream)
     _build.check(lib, code, "evolve kernel launch")
     LAUNCHES += 1
-    result = EvolveResult(last_ind=last_ind, last_time=last_time,
-                          crossed_ind=crossed_ind, crossed_time=crossed_time,
-                          accept=accept, n_events=n_events)
-    return (result, sched) if E else result
+    return out
+
+
+@evolve_op.register_kernel("cpu")
+def _evolve_plain(cfg, v0, s0, beta, init_ind, n_real, record_schedule,
+                  event_times, fallbacks):
+    c = config_of(cfg)
+    E = int(record_schedule)
+    rows = v0.shape[0] * n_real
+    times = (torch.zeros(rows, E, dtype=torch.float64) if event_times
+             else torch.zeros(rows, 0, dtype=torch.float64))
+    fb = torch.zeros(rows if fallbacks else 0, dtype=torch.int32)
+    out = evolve_ensemble_batched(
+        c, v0, s0, beta, init_ind, E, fallbacks=fb if fallbacks else None,
+        n_real=n_real, event_times=times if event_times else None)
+    res, sched = out if E else (out, torch.zeros(rows, 0,
+                                                 dtype=torch.int32))
+    return (*res, sched, times, fb)
+
+
+@evolve_op.register_fake
+def _evolve_fake(cfg, v0, s0, beta, init_ind, n_real, record_schedule,
+                 event_times, fallbacks):
+    return _evolve_outputs(v0, init_ind, n_real, record_schedule,
+                           event_times, fallbacks)

@@ -18,6 +18,16 @@ CTAs hold their share of the row in shared memory, or a pair where a row
 of one CTA would leave most of the card idle);
 ``TANGENT_LAUNCHES`` counts its launches.
 
+Both are ops, ``atorch::replay`` (:func:`replay_op`) and
+``atorch::replay_tangent`` (:func:`replay_tangent_op`): functional (they
+return new tensors), with a fake kernel for the output shapes, and
+dispatched by device, the kernel for CUDA tensors and the plain version
+for CPU ones (a CUDA tensor never reaches the plain version).  K2T's op
+also has a vmap rule that folds a batch of tangents into its ``D`` axis,
+so ``torch.func.jacfwd`` over the map launches K2T once
+(:func:`replay_tangent`).  The launches are ``ctypes`` calls into the
+library that :mod:`.._build` compiles with nvcc.
+
 K2's launch is one CTA a row, of :func:`replay_layout`'s threads, always.
 A row that does not fit one CTA's shared memory
 (:func:`.evolve_cuda.row_fits_shared`; for K2T, a cluster of 8) keeps its
@@ -28,17 +38,18 @@ kernel body is the same.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import _build
 from ..config import ModelConfig
 from .evolve import EvolveResult, beta_rows
-from .evolve_cuda import (SHARED_OPTIN_BYTES, row_elems, row_fits_shared,
+from .evolve_cuda import (SHARED_OPTIN_BYTES, config_key, config_of,
+                          n_real_of, row_elems, row_fits_shared,
                           row_shared_bytes, shared_optin_bytes)
 from .replay import (check_replay_inputs, check_tangent_inputs, kick_table,
-                     schedule_config)
+                     replay_events, replay_events_tangent, schedule_config)
 
 LAUNCHES = 0
 TANGENT_LAUNCHES = 0
@@ -161,7 +172,8 @@ def replay_events_cuda(cfg: ModelConfig, sched: torch.Tensor,
                        s0: torch.Tensor, beta: torch.Tensor,
                        init_ind: torch.Tensor, *,
                        n_real=None) -> EvolveResult:
-    """Replay a recorded firing order on the card, one CTA per row.
+    """Replay a recorded firing order on the card, one CTA per row (the
+    op ``atorch::replay`` on CUDA tensors; CPU tensors are refused).
 
     Args:
       sched: ``(R, E)`` or ``(P * R, E)`` int32 firing-order log.
@@ -173,27 +185,57 @@ def replay_events_cuda(cfg: ModelConfig, sched: torch.Tensor,
     Returns:
       :class:`EvolveResult` over ``P * R`` rows, times in ``v0.dtype``.
     """
-    global LAUNCHES
-    check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real)
-    for name, x in (("sched", sched), ("n_sched", n_sched), ("v0", v0),
-                    ("s0", s0), ("beta", beta), ("init_ind", init_ind)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if v0.device.type != "cuda":
         raise ValueError("replay_events_cuda needs CUDA tensors; got "
                          f"{v0.device} (use the plain replay on the CPU)")
+    return EvolveResult(*replay_op(config_key(cfg), sched, n_sched, v0, s0,
+                                   beta, init_ind,
+                                   n_real_of(beta, n_real)))
+
+
+def _check_contiguous(**tensors) -> None:
+    for name, x in tensors.items():
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _replay_outputs(v0, rows: int, M: int):
+    """K2's outputs before its launch: the :class:`EvolveResult`'s first
+    five tensors, uninitialised, on ``v0``'s device."""
+    i32, dev, dt_ = torch.int32, v0.device, v0.dtype
+    return (torch.empty(rows, M, dtype=i32, device=dev),
+            torch.empty(rows, M, dtype=dt_, device=dev),
+            torch.empty(rows, M, dtype=i32, device=dev),
+            torch.empty(rows, M, dtype=dt_, device=dev),
+            torch.empty(rows, dtype=torch.bool, device=dev))
+
+
+@torch.library.custom_op("atorch::replay", mutates_args=(),
+                         device_types="cuda")
+def replay_op(cfg: str, sched: torch.Tensor, n_sched: torch.Tensor,
+              v0: torch.Tensor, s0: torch.Tensor, beta: torch.Tensor,
+              init_ind: torch.Tensor, n_real: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 as an op (``cfg`` a :func:`.evolve_cuda.config_key` string,
+    ``n_real`` the realisations R): the :class:`EvolveResult`'s six
+    tensors.  Its CUDA kernel launches K2 on the current stream (no
+    synchronise) and raises on any input the kernel does not take and on
+    a launch the card refuses; its CPU kernel is the plain version,
+    :func:`.replay.replay_events`."""
+    global LAUNCHES
+    c = config_of(cfg)
+    check_replay_inputs(c, sched, n_sched, v0, s0, beta, init_ind, n_real)
+    _check_contiguous(sched=sched, n_sched=n_sched, v0=v0, s0=s0, beta=beta,
+                      init_ind=init_ind)
     P, N = v0.shape
-    (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
+    (R, per_row), M = beta_rows(beta, P, n_real), c.n_spikes
     S, E = sched.shape
     Q = init_ind.numel() // M
     rows, dev, dt_ = P * R, v0.device, v0.dtype
-    last_ind = torch.empty(rows, M, dtype=torch.int32, device=dev)
-    last_time = torch.empty(rows, M, dtype=dt_, device=dev)
-    crossed_ind = torch.empty(rows, M, dtype=torch.int32, device=dev)
-    crossed_time = torch.empty(rows, M, dtype=dt_, device=dev)
-    accept = torch.empty(rows, dtype=torch.bool, device=dev)
-    wtab = kick_table(cfg, dev)
-    cfg32 = schedule_config(cfg)
+    out = _replay_outputs(v0, rows, M)
+    wtab = kick_table(c, dev)
+    cfg32 = schedule_config(c)
     optin = shared_optin_bytes(dev)
     props = torch.cuda.get_device_properties(dev)
     threads = replay_layout(N, M, rows, props.multi_processor_count, optin,
@@ -208,18 +250,27 @@ def replay_events_cuda(cfg: ModelConfig, sched: torch.Tensor,
         code = getattr(lib, _ENTRY[dt_])(
             v0.data_ptr(), s0.data_ptr(), beta.data_ptr(), sched.data_ptr(),
             n_sched.data_ptr(), init_ind.data_ptr(), wtab.data_ptr(),
-            last_ind.data_ptr(), last_time.data_ptr(),
-            crossed_ind.data_ptr(), crossed_time.data_ptr(),
-            accept.data_ptr(),
+            *(x.data_ptr() for x in out),
             None if scratch is None else scratch.data_ptr(), P, R, N, M, E,
             S, Q, int(per_row), threads, cfg32.counter_max,
-            cfg.vth, cfg.drive, cfg.vth - cfg.drive, cfg.t_horizon,
+            c.vth, c.drive, c.vth - c.drive, c.t_horizon,
             cfg32.root_tol, stream)
     _build.check(lib, code, "replay kernel launch")
     LAUNCHES += 1
-    return EvolveResult(last_ind=last_ind, last_time=last_time,
-                        crossed_ind=crossed_ind, crossed_time=crossed_time,
-                        accept=accept, n_events=n_sched.repeat(rows // S))
+    return (*out, n_sched.repeat(rows // S))
+
+
+@replay_op.register_kernel("cpu")
+def _replay_plain(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real):
+    return tuple(replay_events(config_of(cfg), sched, n_sched, v0, s0, beta,
+                               init_ind, n_real=n_real))
+
+
+@replay_op.register_fake
+def _replay_fake(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real):
+    rows = v0.shape[0] * n_real
+    return (*_replay_outputs(v0, rows, init_ind.shape[-1]),
+            n_sched.new_empty(rows))
 
 
 def replay_events_tangent_cuda(cfg: ModelConfig, sched: torch.Tensor,
@@ -232,7 +283,8 @@ def replay_events_tangent_cuda(cfg: ModelConfig, sched: torch.Tensor,
                                times: Optional[torch.Tensor] = None):
     """K2T: the replay with ``D`` forward tangents on the card, the primal
     once a row, the row's lanes over a cluster of :func:`replay_layout`'s
-    CTAs.
+    CTAs (the op ``atorch::replay_tangent`` on CUDA tensors; CPU tensors
+    are refused).
 
     Takes and returns what :func:`.replay.replay_events_tangent` does:
     ``(result, d_last_time, d_crossed_time)``, the tangents ``(D, P * R,
@@ -242,35 +294,64 @@ def replay_events_tangent_cuda(cfg: ModelConfig, sched: torch.Tensor,
     Raises on any input the kernel does not take and on a launch the card
     refuses (a cluster it cannot place included); there is no fallback.
     """
-    global TANGENT_LAUNCHES
-    check_replay_inputs(cfg, sched, n_sched, v0, s0, beta, init_ind, n_real)
-    D = check_tangent_inputs(cfg, v0, beta, dv0, ds0, base, dp, n_real,
-                             sched, times)
-    for name, x in (("sched", sched), ("n_sched", n_sched), ("v0", v0),
-                    ("s0", s0), ("beta", beta), ("init_ind", init_ind),
-                    ("dv0", dv0), ("ds0", ds0), ("base", base), ("dp", dp),
-                    ("times", times)):
-        if x is not None and not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if v0.device.type != "cuda":
         raise ValueError("replay_events_tangent_cuda needs CUDA tensors; "
                          f"got {v0.device} (use the plain tangent replay on "
                          "the CPU)")
+    return replay_tangent(cfg, sched, n_sched, v0, s0, beta, init_ind, dv0,
+                          ds0, base, dp, n_real=n_real, times=times)
+
+
+def replay_tangent(cfg: ModelConfig, sched, n_sched, v0, s0, beta, init_ind,
+                   dv0, ds0, base, dp, *, n_real=None, times=None):
+    """The op ``atorch::replay_tangent`` on tensors of any device (K2T for
+    CUDA ones, :func:`.replay.replay_events_tangent` for CPU ones), with
+    its arguments and results as :func:`replay_events_tangent_cuda` takes
+    and returns them.  Under ``torch.func.vmap`` the op's vmap rule folds a
+    batch of ``dv0``, ``ds0`` and ``dp`` into the ``D`` axis: one launch
+    for the whole batch."""
+    out = replay_tangent_op(config_key(cfg), sched, n_sched, v0, s0, beta,
+                            init_ind, dv0, ds0, base, dp, times,
+                            n_real_of(beta, n_real))
+    return EvolveResult(*out[:6]), out[6], out[7]
+
+
+@torch.library.custom_op("atorch::replay_tangent", mutates_args=(),
+                         device_types="cuda")
+def replay_tangent_op(cfg: str, sched: torch.Tensor, n_sched: torch.Tensor,
+                      v0: torch.Tensor, s0: torch.Tensor, beta: torch.Tensor,
+                      init_ind: torch.Tensor, dv0: torch.Tensor,
+                      ds0: torch.Tensor, base: Optional[torch.Tensor],
+                      dp: torch.Tensor, times: Optional[torch.Tensor],
+                      n_real: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    """K2T as an op: the :class:`EvolveResult`'s six tensors and the ``(D,
+    P * R, M)`` float64 tangents of the last and crossed times.  Its CUDA
+    kernel launches K2T on the current stream (no synchronise) and raises
+    on any input the kernel does not take and on a launch the card
+    refuses; its CPU kernel is the plain version,
+    :func:`.replay.replay_events_tangent`."""
+    global TANGENT_LAUNCHES
+    c = config_of(cfg)
+    check_replay_inputs(c, sched, n_sched, v0, s0, beta, init_ind, n_real)
+    D = check_tangent_inputs(c, v0, beta, dv0, ds0, base, dp, n_real,
+                             sched, times)
+    _check_contiguous(sched=sched, n_sched=n_sched, v0=v0, s0=s0, beta=beta,
+                      init_ind=init_ind, dv0=dv0, ds0=ds0, base=base, dp=dp,
+                      times=times)
     P, N = v0.shape
-    (R, per_row), M = beta_rows(beta, P, n_real), cfg.n_spikes
+    (R, per_row), M = beta_rows(beta, P, n_real), c.n_spikes
     S, E = sched.shape
     Q = init_ind.numel() // M
     rows, dev, dt_ = P * R, v0.device, v0.dtype
     f64 = torch.float64
-    last_ind = torch.empty(rows, M, dtype=torch.int32, device=dev)
-    last_time = torch.empty(rows, M, dtype=dt_, device=dev)
-    crossed_ind = torch.empty(rows, M, dtype=torch.int32, device=dev)
-    crossed_time = torch.empty(rows, M, dtype=dt_, device=dev)
-    accept = torch.empty(rows, dtype=torch.bool, device=dev)
+    out = _replay_outputs(v0, rows, M)
     d_last = torch.empty(D, rows, M, dtype=f64, device=dev)
     d_crossed = torch.empty(D, rows, M, dtype=f64, device=dev)
-    wtab = kick_table(cfg, dev)
-    cfg32 = schedule_config(cfg)
+    wtab = kick_table(c, dev)
+    cfg32 = schedule_config(c)
     props = torch.cuda.get_device_properties(dev)
     layout = replay_layout(N, M, rows, props.multi_processor_count,
                            shared_optin_bytes(dev),
@@ -288,19 +369,71 @@ def replay_events_tangent_cuda(cfg: ModelConfig, sched: torch.Tensor,
             ds0.data_ptr(), None if base is None else base.data_ptr(),
             dp.data_ptr(), None if times is None else times.data_ptr(),
             sched.data_ptr(), n_sched.data_ptr(), init_ind.data_ptr(),
-            wtab.data_ptr(), last_ind.data_ptr(), last_time.data_ptr(),
-            crossed_ind.data_ptr(), crossed_time.data_ptr(),
-            accept.data_ptr(), d_last.data_ptr(), d_crossed.data_ptr(),
+            wtab.data_ptr(), *(x.data_ptr() for x in out),
+            d_last.data_ptr(), d_crossed.data_ptr(),
             None if scratch is None else scratch.data_ptr(), P, R, N, M, E,
             S, Q, D, layout.cluster, int(per_row), layout.threads,
-            cfg32.counter_max, cfg.vth, cfg.drive, cfg.vth - cfg.drive,
-            cfg.t_horizon, cfg32.root_tol, stream)
+            cfg32.counter_max, c.vth, c.drive, c.vth - c.drive,
+            c.t_horizon, cfg32.root_tol, stream)
     _build.check(lib, code, "tangent replay kernel launch")
     TANGENT_LAUNCHES += 1
-    result = EvolveResult(last_ind=last_ind, last_time=last_time,
-                          crossed_ind=crossed_ind, crossed_time=crossed_time,
-                          accept=accept, n_events=n_sched.repeat(rows // S))
-    return result, d_last, d_crossed
+    return (*out, n_sched.repeat(rows // S), d_last, d_crossed)
+
+
+@replay_tangent_op.register_kernel("cpu")
+def _replay_tangent_plain(cfg, sched, n_sched, v0, s0, beta, init_ind, dv0,
+                          ds0, base, dp, times, n_real):
+    res, d_last, d_crossed = replay_events_tangent(
+        config_of(cfg), sched, n_sched, v0, s0, beta, init_ind, dv0, ds0,
+        base, dp, n_real=n_real, times=times)
+    return (*res, d_last, d_crossed)
+
+
+@replay_tangent_op.register_fake
+def _replay_tangent_fake(cfg, sched, n_sched, v0, s0, beta, init_ind, dv0,
+                         ds0, base, dp, times, n_real):
+    rows, M = v0.shape[0] * n_real, init_ind.shape[-1]
+    tangent = (dv0.shape[0], rows, M)
+    return (*_replay_outputs(v0, rows, M), n_sched.new_empty(rows),
+            dv0.new_empty(tangent), dv0.new_empty(tangent))
+
+
+def _replay_tangent_vmap(info, in_dims, cfg, sched, n_sched, v0, s0, beta,
+                         init_ind, dv0, ds0, base, dp, times, n_real):
+    """The vmap rule of ``atorch::replay_tangent``: a batch of ``B``
+    tangents ``dv0``, ``ds0`` (``(B, D, P, N)``) and ``dp`` (``(B, D,
+    P)``), any of them unbatched (then shared by the batch), runs as ONE
+    op call of ``B * D`` directions; the tangents come back ``(B, D, P *
+    R, M)`` and the primal outputs unbatched.  The primal inputs cannot be
+    batched (a batch of points is a ``(P, n)`` stack of the map)."""
+    names = ("sched", "n_sched", "v0", "s0", "beta", "init_ind", "base",
+             "times")
+    dims = dict(zip(("cfg", "sched", "n_sched", "v0", "s0", "beta",
+                     "init_ind", "dv0", "ds0", "base", "dp", "times",
+                     "n_real"), in_dims))
+    batched = [n for n in names if dims[n] is not None]
+    if batched:
+        raise NotImplementedError(
+            f"vmap over the tangent replay's {', '.join(batched)}: only the "
+            "tangents dv0, ds0 and dp can be batched (evaluate a batch of "
+            "points as a (P, n) stack)")
+    B = info.batch_size
+
+    def fold(x, dim):
+        x = (x.expand(B, *x.shape) if dim is None
+             else x.movedim(dim, 0))
+        return x.reshape(B * x.shape[1], *x.shape[2:]).contiguous()
+
+    dv0f, ds0f, dpf = (fold(x, dims[n]) for x, n in ((dv0, "dv0"),
+                                                     (ds0, "ds0"),
+                                                     (dp, "dp")))
+    out = replay_tangent_op(cfg, sched, n_sched, v0, s0, beta, init_ind,
+                            dv0f, ds0f, base, dpf, times, n_real)
+    tangents = [t.reshape(B, -1, *t.shape[1:]) for t in out[6:]]
+    return (*out[:6], *tangents), (None,) * 6 + (0, 0)
+
+
+torch.library.register_vmap("atorch::replay_tangent", _replay_tangent_vmap)
 
 
 def tangent_clusters(layout: TangentLayout, N: int, M: int, D: int, *,

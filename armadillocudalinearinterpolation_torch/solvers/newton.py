@@ -7,7 +7,9 @@ the residual oracle as ONE ``(n, n)`` or ``(2n, n)`` stack, which the
 event-driven map evaluates in one evolve launch: one Newton iteration costs
 two map evaluations.  ``fd_mode="exact"`` takes the residual's own exact
 Jacobian (``F.value_and_jacobian``, :class:`..model.emap.ResidualFn`: one
-tangent replay, K2T on the card) or the caller's ``jacobian_fn``.
+tangent replay, K2T on the card), the caller's ``jacobian_fn``, or for any
+other callable its forward-mode Jacobian (:func:`jacfwd_cols`), as the
+JAX solver takes any differentiable callable.
 """
 
 from __future__ import annotations
@@ -61,22 +63,35 @@ class JacobianUnavailable(RuntimeError):
     :func:`newton_solve` stops at that iterate, not converged."""
 
 
+def jacfwd_cols(F: Callable[..., torch.Tensor]
+                ) -> Callable[..., torch.Tensor]:
+    """The forward-mode Jacobian of ``F`` in its first argument (the JAX
+    package's ``jacfwd_cols``): ``jac(x, *args)`` is ``dF(x, *args)/dx``,
+    ``(m, n)`` for an ``(m,)`` output of an ``(n,)`` point, the extra
+    arguments held as constants.
+
+    It is ``torch.func.jacfwd`` (a vmap of ``jvp``).  The JAX package
+    takes its ``n`` columns one ``jvp`` at a time because on the TPU a
+    vmap over tangents through the replay's event loop ran ~25x slower
+    than the columns; here the map's evolve receives the ``n`` tangents as
+    one batch and replays them as the ``D`` axis of one tangent replay
+    (one K2T launch on the card; :mod:`..model.autodiff`), so the vmapped
+    shape is the right one.  ``F`` may be any callable that PyTorch can
+    differentiate forward, the map of
+    :func:`..model.emap.make_residual_fn` and compositions of it
+    included."""
+    def jac(x: torch.Tensor, *args) -> torch.Tensor:
+        return torch.func.jacfwd(lambda xx: F(xx, *args))(x)
+    return jac
+
+
 def exact_jacobian(F: Callable, x: torch.Tensor) -> torch.Tensor:
-    """The exact Jacobian of ``F`` at ``x`` (the JAX package's
-    ``jacfwd_cols``): ``F.value_and_jacobian(x)[1]``, which a residual of
-    :func:`..model.emap.make_residual_fn` offers.  A plain callable has
-    none: raise."""
-    return _value_and_jacobian(F)(x)[1]
-
-
-def _value_and_jacobian(F: Callable) -> Callable:
-    """``F.value_and_jacobian``; a plain callable has none: raise."""
+    """The exact Jacobian of ``F`` at ``x``: ``F.value_and_jacobian(x)[1]``
+    where ``F`` offers it (a residual of
+    :func:`..model.emap.make_residual_fn`: one tangent replay), else
+    :func:`jacfwd_cols` over ``F``."""
     vaj = getattr(F, "value_and_jacobian", None)
-    if vaj is None:
-        raise ValueError(
-            "fd_mode='exact' needs F.value_and_jacobian (a residual of "
-            "make_residual_fn) or a jacobian_fn; this F is a plain callable")
-    return vaj
+    return jacfwd_cols(F)(x) if vaj is None else vaj(x)[1]
 
 
 def _print_header(max_iterations, tolerance):
@@ -138,8 +153,9 @@ def newton_solve(
         (prints the reference's table live), fd_mode and
         divergence_factor.
       jacobian_fn: optional analytic Jacobian ``x -> (n, n)``; with
-        ``fd_mode="exact"`` and none given, ``F.value_and_jacobian``
-        (:func:`exact_jacobian`; a plain callable raises ``ValueError``).
+        ``fd_mode="exact"`` and none given, :func:`exact_jacobian`
+        (``F.value_and_jacobian``, or forward-mode AD over a callable that
+        has none).
       criterion: convergence test on the residual norm; the absolute test at
         ``cfg.tolerance`` by default.
       jacobian0: optional warm-start Jacobian (quasi-Newton with refresh on
@@ -152,8 +168,6 @@ def newton_solve(
     test = criterion if criterion is not None else residual_norm_criterion(
         cfg.tolerance)
     _check_fd_mode(cfg)
-    if cfg.fd_mode == "exact" and jacobian_fn is None:
-        _value_and_jacobian(F)             # refuse before any evaluation
     n = x0.shape[0]
     dt_, dev = x0.dtype, x0.device
     log = cfg.print_output

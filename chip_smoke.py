@@ -78,7 +78,14 @@ fp64 log with and without its time log in turns, and
 ``newton_solve_staged`` on the
 direct evolve (the exact stage 2 by default) from the guess and the guess
 + 1e-3, and on the replay with an exact stage 2 beside the frozen-fwd
-default, each to 1e-8 recomputed by a fresh map.  Then the walkers
+default, each to 1e-8 recomputed by a fresh map.  Then the map under
+PyTorch's forward-mode AD (``autodiff``: the evolve as ``autograd.Function``
+s, K1, K2 and K2T as ``torch.library`` ops): ``jacfwd_cols``,
+``torch.func.jacfwd`` and ``forward_ad`` against ``value_and_jacobian``
+(1e-12 relative) at config 4 and N=512, R=4 on the direct and the replay
+backend, each route's wall and launches (one K2T a ``jacfwd``), a map
+evaluation without a tangent (K1 alone), and the host µs a call of K1,
+K2 and K2T through their ops against the op's kernel alone.  Then the walkers
 (``walkers``) through ``cli.driver.main``: the artifact's arclength walk
 (N=512, R=4, sigma 0, f64, 70 steps with ``--stability``) against
 ``artifacts/arclength_fold/`` (first three solutions to 1e-6, the end at
@@ -236,6 +243,9 @@ EXACT_BARS = {"k2t_vs_plain_relative": 1e-12, "k2t_primal_vs_k2": 0.0,
               "jacobian_vs_frozen_fd_relative": 1e-5}
 EXACT_FD_EPS = 1e-5
 K2T_SRC_LINE = "armadillocudalinearinterpolation_tpu/model/replay.py:724"
+# autodiff: the map's forward-mode AD against its exact Jacobian, the same
+# tangent replay of the same log (relative to |J|)
+AUTODIFF_BAR = 1e-12
 # walkers: the artifact's arclength walk (artifacts/README.md:112-118) at
 # N=512, R=4, sigma 0, f64 from the Driver.cu fixed point; its first three
 # solutions against artifacts/arclength_fold/step_0000{0,1,2}.npz and its
@@ -2654,6 +2664,131 @@ def exact(pt, torch, dev, smi: str):
     return entry, path_launches, solves["direct_guess"]["solution"]
 
 
+def map_op_calls(pt, torch, dev) -> dict:
+    """K1, K2 and K2T at a size where the device time is negligible (N=256,
+    one row, f64; K1 to a horizon of 0.01, K2 and K2T on an empty log),
+    each as ``(through_op, kernel_alone)``: the public wrapper, which calls
+    the op through PyTorch's dispatcher, and the op's CUDA kernel called
+    as a Python function (the checks, the allocations and the ``ctypes``
+    launch), for :func:`host_us`."""
+    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
+                                                              replay_cuda)
+    f64 = torch.float64
+    cfg = pt.ModelConfig(n_neurons=256, n_real=1, dtype="float64",
+                         t_horizon=0.01)
+    params = pt.MapParams.create(BETA, 0.0, dtype="float64", device=dev)
+    Z = torch.tensor([INITIAL_GUESS], dtype=f64, device=dev)
+    v0, s0 = (x.contiguous() for x in pt.lift(cfg, params, pt.z_to_u(Z)))
+    ii = pt.initial_spike_indices(cfg, Z).contiguous()
+    beta = torch.full((1, 256), BETA, dtype=f64, device=dev)
+    sched = torch.zeros(1, 128, dtype=torch.int32, device=dev)
+    n0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    dv = torch.ones(3, 1, 256, dtype=f64, device=dev)
+    dp = torch.zeros(3, 1, dtype=f64, device=dev)
+    key = evolve_cuda.config_key(cfg)
+    ops = {
+        "evolve_kernel": (evolve_cuda.evolve_op,
+                          (key, v0, s0, beta, ii, 1, 0, False, False)),
+        "replay_kernel": (replay_cuda.replay_op,
+                          (key, sched, n0, v0, s0, beta, ii, 1)),
+        "replay_tangent_kernel": (
+            replay_cuda.replay_tangent_op,
+            (key, sched, n0, v0, s0, beta, ii, dv, dv, None, dp, None, 1))}
+    return {name: (functools.partial(op, *args),
+                   functools.partial(op._init_fn, *args))
+            for name, (op, args) in ops.items()}
+
+
+def autodiff(pt, torch, dev, smi: str):
+    """The map under PyTorch's forward-mode AD (``model/autodiff.py``: the
+    evolve's ``autograd.Function`` s, K1, K2 and K2T as ops) at config 4
+    and at the walkers' N=512, R=4 (f64, sigma 0.1, the draw of seed 0, at
+    the Driver.cu guess), on the direct (``"auto"``) and the replay
+    backend: ``jacfwd_cols(F)(Z)``, ``torch.func.jacfwd(F)(Z)`` and
+    ``torch.autograd.forward_ad`` (three columns) against
+    ``F.value_and_jacobian(Z)`` within ``AUTODIFF_BAR`` relative; each
+    route's wall (CUDA events, medians of 5 in turns) and its K1, K2 and
+    K2T launches (one K2T a ``jacfwd`` required), the launch counts of
+    ``jacfwd_cols`` at config 4 set to 0 just before and read just after;
+    a map evaluation without a tangent (K1 once, no K2T); and the host µs
+    a call of K1, K2 and K2T through their ops against the op's kernel
+    called alone (:func:`map_op_calls`, 1000 calls each, in turns)."""
+    import torch.autograd.forward_ad as fwAD
+    from armadillocudalinearinterpolation_torch.solvers.newton import (
+        jacfwd_cols)
+    f64 = torch.float64
+    params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
+    Z = torch.tensor(INITIAL_GUESS, dtype=f64, device=dev)
+    eye = torch.eye(3, dtype=f64, device=dev)
+
+    def forward_ad(F):
+        cols = []
+        for e in eye:
+            with fwAD.dual_level():
+                cols.append(fwAD.unpack_dual(F(fwAD.make_dual(Z, e)))
+                            .tangent)
+        return torch.stack(cols, dim=1)
+
+    cases, path = {}, {}
+    for shape, cfg in (("config4", pt.ModelConfig(**CONFIG4)),
+                       ("walkers", pt.ModelConfig(
+                           n_neurons=512, n_real=4, dtype="float64"))):
+        for backend in ("auto", "replay"):
+            F = pt.make_residual_fn(cfg, params, 0, device=dev,
+                                    evolve_backend=backend)
+            routes = {
+                "value_and_jacobian": lambda: F.value_and_jacobian(Z)[1],
+                "jacfwd_cols": lambda: jacfwd_cols(F)(Z),
+                "func_jacfwd": lambda: torch.func.jacfwd(F)(Z),
+                "forward_ad_3_columns": lambda: forward_ad(F)}
+            J = {k: fn() for k, fn in routes.items()}
+            case = {"rel_diff": {k: float((J[k] - J["value_and_jacobian"])
+                                          .abs().max()
+                                          / J["value_and_jacobian"].abs()
+                                          .max()) for k in J},
+                    "ms_median_of_5": timed_in_turns(routes, torch, n=5),
+                    "launches": {}}
+            for k, fn in routes.items():
+                torch.cuda.synchronize()
+                zero_launch_counts()
+                fn()
+                torch.cuda.synchronize()
+                case["launches"][k] = launch_counts()
+            zero_launch_counts()
+            F(Z)
+            torch.cuda.synchronize()
+            case["launches"]["map_without_tangent"] = launch_counts()
+            if shape == "config4":
+                path[backend] = case["launches"]["jacfwd_cols"]
+            cases[f"{shape}_{backend}"] = case
+    host = {}
+    for name, (op, alone) in map_op_calls(pt, torch, dev).items():
+        turns = {"through_op": [], "kernel_alone": []}
+        for _ in range(5):
+            turns["through_op"].append(host_us(op, torch))
+            turns["kernel_alone"].append(host_us(alone, torch))
+        host[name] = {k: statistics.median(v) for k, v in turns.items()}
+        host[name]["dispatcher_us"] = (host[name]["through_op"]
+                                       - host[name]["kernel_alone"])
+    emit({"phase": "autodiff", "config4": CONFIG4, "sigma": SIGMA,
+          "beta": BETA, "bar": AUTODIFF_BAR, "cases": cases,
+          "host_us_per_call_median_of_5": host, "card": smi})
+    for name, case in cases.items():
+        for k, d in case["rel_diff"].items():
+            require(d <= AUTODIFF_BAR, f"autodiff {name}: {k} is {d} "
+                    "from value_and_jacobian")
+        for k in ("jacfwd_cols", "func_jacfwd"):
+            require(case["launches"][k]["replay_tangent_kernel"] == 1,
+                    f"autodiff {name}: {k} launched K2T "
+                    f"{case['launches'][k]['replay_tangent_kernel']} times")
+        plain = case["launches"]["map_without_tangent"]
+        require(plain == {"evolve_kernel": 1, "replay_tangent_kernel": 0,
+                          "replay_kernel": int(name.endswith("replay"))},
+                f"autodiff {name}: a map evaluation without a tangent "
+                f"launched {plain}")
+    return path, host
+
+
 def walkers(pt, torch, dev, smi: str, z_config4):
     """The walkers through ``cli.driver.main`` on the card, with the launch
     counts set to 0 just before and read just after: the artifact's
@@ -3127,6 +3262,7 @@ def main() -> int:
     sw = sweep(pt, torch, dev, smi)
     cl = cli(pt, torch, dev, smi)
     tangent_kernel, ex_launches, z_config4 = exact(pt, torch, dev, smi)
+    ad_launches, ad_host = autodiff(pt, torch, dev, smi)
     wk = walkers(pt, torch, dev, smi, z_config4)
     sh = shard(pt, torch, dev, smi, cl["config5_fd_3e-4_first_3"])
     # K1 runs on five paths: the Driver.cu slice (every lane), the config-3
@@ -3135,7 +3271,8 @@ def main() -> int:
     # four windowed; K2 on the staged solve and the CLI's staged run
     # (the walkers' CLI runs are at N=512 on every lane, their config-4
     # steps windowed); the oracle check runs K1 f64 on every lane, the
-    # shard phase's ranks K1 windowed (config 3 and 4), K2 and K2T
+    # shard phase's ranks K1 windowed (config 3 and 4), K2 and K2T; the
+    # autodiff phase's jacfwd_cols at config 4 K1 windowed, K2 and K2T
     full["launches_by_path"] = {
         "slice": slice_launches,
         "walkers": wk["launches_cli"]["evolve_kernel"],
@@ -3146,6 +3283,7 @@ def main() -> int:
         "sweep": sw["launches"],
         "cli": cl["launches"]["evolve_kernel_windowed"],
         "exact": ex_launches["evolve_kernel"],
+        "autodiff": sum(c["evolve_kernel"] for c in ad_launches.values()),
         "walkers": wk["launches_config4"]["evolve_kernel"],
         "shard": sh["launches"]["evolve_kernel"]}
     windowed["launches"] = sum(windowed["launches_by_path"].values())
@@ -3163,6 +3301,7 @@ def main() -> int:
         "staged": replay_kernel["launches"],
         "cli": cl["launches"]["replay_kernel"],
         "exact": ex_launches["replay_kernel"],
+        "autodiff": ad_launches["replay"]["replay_kernel"],
         "walkers": wk["launches_cli"]["replay_kernel"]
         + wk["launches_config4"]["replay_kernel"],
         "shard": sh["launches"]["replay_kernel"]}
@@ -3172,11 +3311,17 @@ def main() -> int:
 
     tangent_kernel["launches_by_path"] = {
         "exact": ex_launches["replay_tangent_kernel"],
+        "autodiff": sum(c["replay_tangent_kernel"]
+                        for c in ad_launches.values()),
         "walkers": wk["launches_cli"]["replay_tangent_kernel"]
         + wk["launches_config4"]["replay_tangent_kernel"],
         "shard": sh["launches"]["replay_tangent_kernel"]}
     tangent_kernel["launches"] = sum(
         tangent_kernel["launches_by_path"].values())
+    for entry, op in ((full, "evolve_kernel"), (windowed, "evolve_kernel"),
+                      (replay_kernel, "replay_kernel"),
+                      (tangent_kernel, "replay_tangent_kernel")):
+        entry["op_host_us"] = ad_host[op]
     kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel,
                tangent_kernel]
     missing = [k["name"] for k in kernels if k["device_us"] is None]

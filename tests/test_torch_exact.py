@@ -297,15 +297,22 @@ def test_exact_jacobian_replay_backend_matches_jax_replay():
 
 
 def test_exact_mode_refuses_float32_and_plain_callables():
+    """The f32 map's exact Jacobian is refused.  A plain callable, refused
+    until the port had forward-mode AD, now takes its Jacobian from
+    ``jacfwd_cols``, as the JAX solver does: ``z * z - 2`` solves to
+    sqrt(2)."""
     _, pcfg = configs(dtype="float32", n_neurons=512, n_real=2)
     _, pp = params(sigma=0.1, dtype="float32")
     F = pt.make_residual_fn(pcfg, pp, 0, device="cpu")
     with pytest.raises(ValueError, match="float64"):
         F.value_and_jacobian(torch.tensor(Z_REF, dtype=torch.float32))
-    with pytest.raises(ValueError, match="value_and_jacobian"):
-        pt.newton_solve(lambda z: z * z - 2.0,
-                        torch.ones(1, dtype=torch.float64),
-                        pt.NewtonConfig(fd_mode="exact"))
+    res = pt.newton_solve(lambda z: z * z - 2.0,
+                          torch.ones(1, dtype=torch.float64),
+                          pt.NewtonConfig(fd_mode="exact", tolerance=1e-12))
+    assert res.converged
+    assert float(res.solution[0]) == pytest.approx(2.0 ** 0.5, abs=1e-12)
+    assert float(res.jacobian[0, 0]) == pytest.approx(2.0 * 2.0 ** 0.5,
+                                                      abs=1e-6)
 
 
 def test_newton_exact_mode_matches_jax():

@@ -104,11 +104,19 @@ def test_newton_matches_jax_on_a_smooth_problem(kw):
 
 
 def test_unknown_and_exact_fd_modes_raise():
-    """An unknown mode raises; exact mode raises on a plain callable (it
-    has no value_and_jacobian) and names both ways to supply one."""
+    """An unknown mode raises.  Exact mode on a plain callable (it has no
+    value_and_jacobian), refused until the port had forward-mode AD, now
+    takes jacfwd_cols and follows the JAX exact-mode solve: the same
+    iterations, solution and Jacobian."""
     x = torch.tensor(X0)
-    with pytest.raises(ValueError, match="exact.*value_and_jacobian"):
-        pt.newton_solve(F_torch, x, pt.NewtonConfig(fd_mode="exact"))
+    got = pt.newton_solve(F_torch, x, pt.NewtonConfig(fd_mode="exact",
+                                                      tolerance=1e-12))
+    ref = jx.newton_solve(F_jax, jnp.asarray(X0), jx.NewtonConfig(
+        fd_mode="exact", tolerance=1e-12))
+    assert got.converged and bool(ref.converged)
+    assert got.iterations == int(ref.iterations)
+    for a, b in ((got.solution, ref.solution), (got.jacobian, ref.jacobian)):
+        np.testing.assert_allclose(to_numpy(a), np.asarray(b), **TOL)
     with pytest.raises(ValueError, match="fd_mode"):
         pt.newton_solve(F_torch, x, pt.NewtonConfig(fd_mode="frozen"))
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Host time per call of the 2-D bilinear wrappers, and of the pieces of a
-launch, on one CUDA card.
+"""Host time per call of the 2-D bilinear wrappers, of K1's, K2's and
+K2T's wrappers, and of the pieces of a launch, on one CUDA card.
 
     python3 tools/host_overhead.py [checkout] [--against parent_checkout]
 
@@ -11,7 +11,11 @@ in one run on one card.  Each wrapper is called 1000 times back to back on a
 clock (``time.perf_counter``) around the calls, with one synchronise after
 them, gives the host µs per call.  The pieces of the f64 entry's launch
 path (``f64_*``) are timed where the checkout has them; a piece the
-checkout lacks is left out.  With ``--against``, the other checkout's
+checkout lacks is left out.  Where the checkout's K1, K2 and K2T are
+``torch.library`` ops, each is also timed through the op (the dispatcher)
+and as the op's CUDA kernel called alone (``map_ops``, from
+``chip_smoke.map_op_calls``: N=256, one row, K1 to a horizon of 0.01, K2
+and K2T on an empty log).  With ``--against``, the other checkout's
 package is loaded beside it in the same process (under another module
 name) and the wrappers of the two are timed in turns, seven rounds each,
 once fresh and once after a ``torch.profiler`` session over a large f64
@@ -69,10 +73,47 @@ def wrapper_calls(pkg, p, g):
             "bilinear_batched_full": lambda: pkg.bilinear_batched(p, g)}
 
 
+def map_wrapper_calls(pkg, inputs):
+    """K1's, K2's and K2T's wrappers of one package on ``inputs`` (those
+    of ``chip_smoke.map_op_calls``' size)."""
+    ec = sys.modules[pkg.__name__ + ".model.evolve_cuda"]
+    rc = sys.modules[pkg.__name__ + ".model.replay_cuda"]
+    cfg, v0, s0, beta, ii, sched, n0, dv, dp = inputs
+    return {"evolve_ensemble_cuda": lambda: ec.evolve_ensemble_cuda(
+                cfg, v0, s0, beta, ii),
+            "replay_events_cuda": lambda: rc.replay_events_cuda(
+                cfg, sched, n0, v0, s0, beta, ii),
+            "replay_events_tangent_cuda": lambda:
+                rc.replay_events_tangent_cuda(cfg, sched, n0, v0, s0, beta,
+                                              ii, dv, dv, None, dp)}
+
+
+def map_inputs(pt, torch, dev):
+    f64 = torch.float64
+    cfg = pt.ModelConfig(n_neurons=256, n_real=1, dtype="float64",
+                         t_horizon=0.01)
+    params = pt.MapParams.create(13.0589, 0.0, dtype="float64", device=dev)
+    Z = torch.tensor([[0.3310, 0.6914, 1.3557]], dtype=f64, device=dev)
+    v0, s0 = (x.contiguous() for x in pt.lift(cfg, params, pt.z_to_u(Z)))
+    return (cfg, v0, s0, torch.full((1, 256), 13.0589, dtype=f64,
+                                    device=dev),
+            pt.initial_spike_indices(cfg, Z).contiguous(),
+            torch.zeros(1, 128, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.ones(3, 1, 256, dtype=f64, device=dev),
+            torch.zeros(3, 1, dtype=f64, device=dev))
+
+
 def in_turns(torch, change, parent, p, g) -> dict:
     """Median host µs per call of each wrapper of both packages, timed in
     turns (parent, change) for ROUNDS rounds."""
-    a, b = wrapper_calls(parent, p, g), wrapper_calls(change, p, g)
+    return calls_in_turns(torch, wrapper_calls(parent, p, g),
+                          wrapper_calls(change, p, g))
+
+
+def calls_in_turns(torch, a, b) -> dict:
+    """Median host µs per call of each call of ``a`` (the parent's) and
+    ``b`` (the change's), timed in turns for ROUNDS rounds."""
     out = {}
     for key in a:
         ta, tb = [], []
@@ -153,9 +194,24 @@ def main() -> int:
             f64_fn, "f64", 0, *ptrs, 1, 0, 8, 8)
     us = {k: per_call_us(fn, torch) for k, fn in calls.items()}
     row = {"checkout": str(root), "host_us_per_call": us, "calls": N}
+    ec = sys.modules[pt.__name__ + ".model.evolve_cuda"]
+    if hasattr(ec, "evolve_op"):
+        row["map_ops"] = {}
+        for name, (op, alone) in cs.map_op_calls(pt, torch, dev).items():
+            t_alone, t_op = [], []
+            for _ in range(ROUNDS):
+                t_alone.append(per_call_us(alone, torch))
+                t_op.append(per_call_us(op, torch))
+            row["map_ops"][name] = {
+                "kernel_alone_us": statistics.median(t_alone),
+                "through_op_us": statistics.median(t_op)}
     if a.against:
         parent = load_as("parent_pkg", Path(a.against).resolve())
         row["against"] = str(Path(a.against).resolve())
+        inputs = map_inputs(pt, torch, dev)
+        row["map_wrappers_in_turns"] = calls_in_turns(
+            torch, map_wrapper_calls(parent, inputs),
+            map_wrapper_calls(pt, inputs))
         row["in_turns_fresh"] = in_turns(torch, pt, parent, p, g)
         # a profiler session over the bench's f64 leg, as chip_smoke.py
         # runs before it measures host times
