@@ -43,6 +43,9 @@ _SIGNATURES = {
     "atorch_replay_tangent_f64": [_P] * 20 + [_I] * 12 + [_D] * 5 + [_P],
     "atorch_replay_tangent_smem_bytes": [_I] * 5,
     "atorch_replay_tangent_clusters": [_I] * 8 + [_P],
+    "atorch_lift_f32": [_P] * 4 + [_I] * 4 + [_D] * 8 + [_P],
+    "atorch_lift_f64": [_P] * 4 + [_I] * 4 + [_D] * 8 + [_P],
+    "atorch_lift_tangent_f64": [_P] * 8 + [_I] * 5 + [_D] * 8 + [_P],
     "atorch_bilinear_gather": [_P] * 3 + [_I] * 7 + [_P],
     "atorch_bilinear_binning": [_P] * 5 + [_I] * 8 + [_P],
     "atorch_bilinear_binned": [_P] * 5 + [_I] * 10 + [_P],

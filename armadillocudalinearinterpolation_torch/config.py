@@ -133,10 +133,12 @@ class NewtonConfig:
     fd_epsilon: float = 1e-2
     damping: float = 1.0
     print_output: bool = False
-    # "forward" FD (reference), "central" FD, or "exact" (not ported yet:
-    # newton_solve raises on it); "frozen" and "frozen-fwd" are the central
-    # and forward frozen-schedule stencils that only the staged solver's
-    # accurate stage takes (solvers/staged.py::newton_solve_frozen).
+    # "forward" FD (reference), "central" FD, or "exact" (the residual's
+    # own exact Jacobian, F.value_and_jacobian, or torch.func.jacfwd of a
+    # differentiable callable: solvers/newton.py::exact_jacobian); "frozen"
+    # and "frozen-fwd" are the central and forward frozen-schedule stencils
+    # that only the staged solver's accurate stage takes
+    # (solvers/staged.py::newton_solve_frozen).
     fd_mode: str = "forward"
     # Stop once the residual norm exceeds divergence_factor * initial norm.
     divergence_factor: float = float("inf")

@@ -21,6 +21,11 @@ around the whole evolve:
   its ``jvp`` from the tangent replay of the discovery's log with its own
   root-find, whose primal is K2's bit for bit.
 
+The lift before them is :class:`DifferentiableLift` on the card: K9
+through the op ``atorch::lift``, its ``jvp`` from K9T
+(``atorch::lift_tangent``, whose vmap rule takes every direction of a
+``jacfwd`` in one launch).
+
 Their outputs are the :class:`.evolve.EvolveResult`'s: ``last_time`` and
 ``crossed_time`` carry tangents, the indices, ``accept`` and ``n_events``
 none.  Under ``torch.func.jacfwd`` the ``D`` tangent directions reach the
@@ -46,6 +51,7 @@ import torch.autograd.forward_ad as fwAD
 from ..config import ModelConfig
 from ..solvers.newton import JacobianUnavailable
 from .evolve import EvolveResult
+from .lift_cuda import lift_op, lift_tangent_op
 from .replay import compute_schedule, schedule_width, select_replay
 from .replay_cuda import replay_tangent
 
@@ -112,6 +118,48 @@ def _tangent_replay(cfg: ModelConfig, sched, n_events, v0, s0, beta,
         dv0[None].contiguous(), ds0[None].contiguous(), None, dp,
         n_real=cfg.n_real, times=times)
     return res, d_last[0], d_crossed[0]
+
+
+class DifferentiableLift(torch.autograd.Function):
+    """The lift of the ``(P, n_spikes + 1)`` points ``U`` under their
+    ``(P,)`` mean rates ``beta`` (``cfg`` a :func:`.evolve_cuda.config_key`
+    string) through the op ``atorch::lift`` (K9 on the card), with its
+    ``jvp`` from ``atorch::lift_tangent`` (K9T): the tangents of ``U`` and
+    ``beta``, either of which may be absent, in one launch, and under
+    ``torch.func.jacfwd`` every direction in that launch.  Outputs ``(v0,
+    s0)``, each ``(P, n_neurons)``."""
+
+    @staticmethod
+    def forward(U, beta, cfg):
+        return lift_op(cfg, U, beta)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        U, beta, cfg = inputs
+        ctx.cfg = cfg
+        ctx.save_for_forward(U, beta)
+
+    @staticmethod
+    def jvp(ctx, dU, dbeta, _):
+        U, beta = ctx.saved_tensors
+        dU = torch.zeros_like(U) if dU is None else dU
+        dbeta = torch.zeros_like(beta) if dbeta is None else dbeta
+        _, _, dv0, ds0 = lift_tangent_op(ctx.cfg, U, beta, dU[None],
+                                         dbeta[None])
+        return dv0[0], ds0[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the lift kernel has no reverse mode (nor has the map's "
+            "evolve): differentiate forward (torch.func.jvp, "
+            "torch.func.jacfwd or torch.autograd.forward_ad)")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise NotImplementedError(
+            "vmap over the lift's points: lift them as one (P, n_spikes + "
+            "1) stack (one launch)")
 
 
 class _Evolve(torch.autograd.Function):

@@ -20,11 +20,12 @@ around it at a whole stencil of points in one replay.
 
 Exact Jacobians (:func:`map_jvp`, ``F.value_and_jacobian``): the map's
 smooth piece at a point is differentiated forward, with no finite
-differences: the lift's tangents by ``torch.func`` over the plain lift,
-the evolve's by the tangent replay (K2T on the card,
-:func:`.replay.replay_events_tangent` on the CPU) of the point's own
-firing order (on a direct backend the fp64 evolve's log with its time log,
-so that the tangents ride on the trajectory that gives ``F``, at its own
+differences: the lift's tangents by K9T (``atorch::lift_tangent``; on
+the CPU the plain lift on dual numbers), the evolve's by the tangent
+replay (K2T on the card, :func:`.replay.replay_events_tangent` on the
+CPU) of the point's own firing order (on a direct backend the fp64
+evolve's log with its time log, so that the tangents ride on the
+trajectory that gives ``F``, at its own
 ``root_tol`` event times; the f32 discovery's log on ``"replay"``, whose
 ``F`` is the tangent replay's own primal), and the restriction's by
 ``torch.func.jvp``.
@@ -56,6 +57,7 @@ from .evolve import EvolveResult
 from .evolve_batched import evolve_ensemble_batched
 from .evolve_cuda import evolve_ensemble_cuda
 from .lift import initial_spike_indices, lift
+from .lift_cuda import lift_tangent
 from .replay import (compute_schedule, evolve_ensemble_replay,
                      select_replay, select_replay_tangent)
 from .restrict import (masked_ensemble_mean, masked_sums, reduce_mean,
@@ -178,9 +180,11 @@ def run_pipeline(cfg: ModelConfig, params: MapParams, Z: torch.Tensor,
     leading ``P`` axes; the evolve result and positions cover ``P * R``
     rows.  ``beta`` is ``(R, N)``, or ``(P * R, N)`` for points with their
     own parameters (``params`` of ``(P,)`` tensors).  Every stage is
-    forward-differentiable: the lift and the restriction as torch ops, the
-    evolve through :func:`.autodiff.differentiable_evolve` (``sharded``:
-    this is one rank's block of a sharded map, which refuses a tangent).
+    forward-differentiable: the lift (on the card through
+    :class:`.autodiff.DifferentiableLift`) and the restriction as torch
+    ops, the evolve through :func:`.autodiff.differentiable_evolve`
+    (``sharded``: this is one rank's block of a sharded map, which refuses
+    a tangent).
     """
     Z = Z.to(dtype=cfg.torch_dtype, device=beta.device)
     U = z_to_u(Z)
@@ -360,25 +364,18 @@ def lift_tangents(cfg: ModelConfig, params: MapParams, Zs: torch.Tensor,
     """The lifts of a stack ``Zs`` ``(P, n)`` and their tangents along
     ``D`` directions: ``dZ`` ``(D, P, n)`` of the points and ``dpb``
     ``(D, P, 1)`` of the mean rate ``params.beta`` (the lift's only
-    parameter), by ``torch.func`` over the plain lift, batched over the
-    directions.  Returns ``(U, dU, v0, s0, dv0, ds0)``, the lifts
-    ``(P, N)`` and their tangents ``(D, P, N)``."""
+    parameter), all directions in one call of the op
+    ``atorch::lift_tangent`` (one K9T launch on the card; the plain
+    loop on dual numbers on the CPU).  Returns ``(U, dU, v0, s0, dv0,
+    ds0)``, the lifts ``(P, N)`` and their tangents ``(D, P, N)``."""
     P = Zs.shape[0]
-    # the mean rate as a (P, 1) column, one per point, shared or not
+    # the mean rate, one per point, shared or not
     pb = params.beta.to(dtype=Zs.dtype, device=Zs.device).reshape(
-        -1, 1).expand(P, 1)
-    sigma = params.sigma
-
-    def lift_of(u, b):
-        return lift(cfg, MapParams(beta=b, sigma=sigma), u)
-
+        -1).expand(P)
     U, dU = z_to_u(Zs), z_to_u(dZ)
-    v0, s0 = lift_of(U, pb)
-    dv0, ds0 = torch.func.vmap(
-        lambda du, db: torch.func.jvp(lift_of, (U, pb), (du, db))[1])(dU,
-                                                                       dpb)
-    return U, dU, v0.contiguous(), s0.contiguous(), dv0.contiguous(), \
-        ds0.contiguous()
+    v0, s0, dv0, ds0 = lift_tangent(cfg, U, pb, dU,
+                                    dpb.reshape(dpb.shape[0], P))
+    return U, dU, v0, s0, dv0, ds0
 
 
 def rate_base(cfg: ModelConfig, noise: Optional[torch.Tensor],

@@ -7,7 +7,9 @@ the reference.  The lift uses the *mean* rate ``beta``: heterogeneity
 enters only in evolve.
 
 Every function takes a leading batch of points: ``U`` of shape
-``(..., n_spikes + 1)`` lifts to ``(..., n_neurons)``.
+``(..., n_spikes + 1)`` lifts to ``(..., n_neurons)``.  :func:`lift` runs
+the kernel K9 (``csrc/lift.cu``, :mod:`.lift_cuda`) on CUDA tensors and
+:func:`lift_plain`, the loop over the spikes, on the CPU.
 """
 
 from __future__ import annotations
@@ -17,42 +19,78 @@ from typing import Tuple
 import torch
 
 from ..config import ModelConfig, MapParams
+from .evolve_cuda import config_key
 
 
 def _lift_voltage_term(x, c, u, beta, a, b):
     """One (a, b) exponential-pair contribution to the voltage profile:
-    ``(pos_branch, neg_branch)`` selected on ``x - c*u > 0``."""
+    ``(pos_branch, neg_branch)`` selected on ``x - c*u > 0``.  Written
+    with methods (``.exp()``), so that it also runs on the dual numbers of
+    :func:`.lift_cuda.lift_tangent_plain`."""
     cb = c * b
-    boundary = (a * beta * c) / ((beta + cb) * (1.0 + cb)) * torch.exp(
-        u * (1.0 + cb)) * torch.exp(-b * c * u)
-    homog = (a * beta * c / (1.0 - beta)) * torch.exp(beta * u) * (
+    boundary = (a * beta * c) / ((beta + cb) * (1.0 + cb)) * (
+        u * (1.0 + cb)).exp() * (-b * c * u).exp()
+    homog = (a * beta * c / (1.0 - beta)) * (beta * u).exp() * (
         1.0 / (beta + cb) + 1.0 / (cb - beta)) * (
-            torch.exp((x / c) * (1.0 - beta)) - torch.exp(u * (1.0 - beta)))
-    partic = (a * beta * c / ((cb - beta) * (1.0 - cb))) * torch.exp(
-        b * c * u) * (torch.exp(x * (1.0 - cb) / c)
-                      - torch.exp(c * u * (1.0 - cb) / c))
+            ((x / c) * (1.0 - beta)).exp() - (u * (1.0 - beta)).exp())
+    partic = (a * beta * c / ((cb - beta) * (1.0 - cb))) * (
+        b * c * u).exp() * ((x * (1.0 - cb) / c).exp()
+                            - (c * u * (1.0 - cb) / c).exp())
     pos = boundary + homog - partic
-    neg = (a * beta * c) / ((beta + cb) * (1.0 + cb)) * torch.exp(
-        x * (1.0 + cb) / c) * torch.exp(-b * c * u)
+    neg = (a * beta * c) / ((beta + cb) * (1.0 + cb)) * (
+        x * (1.0 + cb) / c).exp() * (-b * c * u).exp()
     return pos, neg
 
 
 def _lift_synapse_term(x, c, u, beta, a, b):
     """One (a, b) contribution to the synaptic profile: ``(ahead, behind)``."""
     cb = c * b
-    ahead = beta * a * (c / (beta + cb)) * torch.exp(b * (x - c * u))
+    ahead = beta * a * (c / (beta + cb)) * (b * (x - c * u)).exp()
     behind = ((2.0 * a / b) * (beta / (1.0 - (beta * beta) / (cb * cb)))
-              * torch.exp(-(beta / c) * (x - c * u))
-              - beta * a * (c / (cb - beta)) * torch.exp(b * (c * u - x)))
+              * (-(beta / c) * (x - c * u)).exp()
+              - beta * a * (c / (cb - beta)) * (b * (c * u - x)).exp())
     return ahead, behind
 
 
 def lift(cfg: ModelConfig, params: MapParams, U: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Closed-form lift of ``U = (c, u_1..u_M)`` to ``(v, s)``.
+    """Closed-form lift of ``U = (c, u_1..u_M)`` to ``(v, s)``: one launch
+    of K9 on CUDA tensors, through
+    :class:`.autodiff.DifferentiableLift` (forward-differentiable, its
+    tangents from K9T; it launches or raises), and :func:`lift_plain` on
+    the CPU.
 
     Args:
+      params: ``params.beta``, the mean rate, 0-dim or one per point
+        (broadcasting against ``U[..., :1]``, as :func:`.emap.point_params`
+        gives it).
       U: ``(..., n_spikes + 1)`` gauge-fixed state: speed then offsets.
+
+    Returns:
+      ``(v, s)`` of shape ``(..., n_neurons)`` in ``U``'s dtype and device.
+    """
+    beta = params.beta.to(dtype=U.dtype, device=U.device)
+    if U.device.type != "cuda":
+        return lift_plain(cfg, beta, U)
+    from .autodiff import DifferentiableLift
+    lead = U.shape[:-1]
+    v, s = DifferentiableLift.apply(
+        U.reshape(-1, U.shape[-1]).contiguous(),
+        beta.expand(*lead, 1).reshape(-1), config_key(cfg))
+    return v.reshape(*lead, -1), s.reshape(*lead, -1)
+
+
+def lift_plain(cfg: ModelConfig, beta: torch.Tensor, U: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lift as plain PyTorch, a loop over the spikes (the JAX
+    package's ``model/lift.py:66-100``): the CPU path of :func:`lift` and
+    the plain version of K9.
+
+    Args:
+      beta: the mean rate in ``U``'s dtype and device, 0-dim or
+        broadcasting against ``U[..., :1]``.
+      U: ``(..., n_spikes + 1)`` gauge-fixed state: speed then offsets.
+        ``U`` and ``beta`` may also be :class:`.lift_cuda.Dual` numbers.
 
     Returns:
       ``(v, s)`` of shape ``(..., n_neurons)`` in ``U``'s dtype and device.
@@ -61,7 +99,6 @@ def lift(cfg: ModelConfig, params: MapParams, U: torch.Tensor
     i = torch.arange(cfg.n_neurons, dtype=dt_, device=dev)
     x = cfg.half_width - cfg.dx * i
     c = U[..., :1]
-    beta = params.beta.to(dtype=dt_, device=dev)
 
     v_acc = torch.zeros(U.shape[:-1] + (cfg.n_neurons,), dtype=dt_,
                         device=dev)
@@ -73,14 +110,13 @@ def lift(cfg: ModelConfig, params: MapParams, U: torch.Tensor
 
         p1, n1 = _lift_voltage_term(x, c, u, beta, cfg.a1, cfg.b1)
         p2, n2 = _lift_voltage_term(x, c, u, beta, cfg.a2, cfg.b2)
-        dummy_v = torch.where(ahead, p1 - p2, n1 - n2) * torch.exp(-x / c)
-        v_acc = v_acc + dummy_v - torch.where(
-            ahead, torch.exp(-(x - c * u) / c), zero)
+        dummy_v = (p1 - p2).where(ahead, n1 - n2) * (-x / c).exp()
+        v_acc = v_acc + dummy_v - (-(x - c * u) / c).exp().where(ahead, zero)
 
         s1a, s1b = _lift_synapse_term(x, c, u, beta, cfg.a1, cfg.b1)
         s2a, s2b = _lift_synapse_term(x, c, u, beta, cfg.a2, cfg.b2)
         behind_spike = (c * u - x) > 0.0
-        s_acc = s_acc + torch.where(behind_spike, s1a - s2a, s1b - s2b)
+        s_acc = s_acc + (s1a - s2a).where(behind_spike, s1b - s2b)
 
     v = cfg.drive + v_acc
     # clamp super-threshold sites to the reset value

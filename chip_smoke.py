@@ -11,6 +11,13 @@ runs the reference's ``Driver.cu`` program through the public API
 N=512, R=1000, f32), and times one map evaluation at config 3 (N=1024,
 R=1024, ``evolve_window=128`` as the JAX bench runs it) beside the same
 evaluation on every lane, requiring every row of the two equal.  Then the
+lift (``lift``): K9 through ``pt.lift`` and K9T through
+``emap.lift_tangents`` at the shapes configs 3, 4 and 5 and the exact
+Jacobian give them, against the plain lift and ``torch.func`` over it
+(f64 1e-12, f32 1e-6, tangents 1e-12 relative, with the share of equal
+bits), K9T's primal against K9's, each timed beside its plain version with
+its device µs and bound; every path after it counts K9's launches, and
+every exact one K9T's.  Then the
 batched 2-D
 bilinear path (``interp2d``): ``bilinear_batched`` at BASELINE config 2
 (64 grids of 256x256, 1M queries, f32; ``method="auto"`` -> the gather
@@ -284,6 +291,32 @@ ORACLE_CONFIG = {"n_neurons": 512, "n_real": 4, "dtype": "float64"}
 ORACLE_POINTS = {"guess": INITIAL_GUESS,
                  "root": (0.32623663, 0.71936722, 1.36899475)}
 ORACLE_BAR = 1e-12
+# lift (K9, K9T): the shapes the main path gives them, as (N, points,
+# dtype): config 3's map evaluation and its forward-FD stack, config 4's
+# frozen-fwd stencil (f64) and config 5's FD stack; K9T as (N, points, D):
+# config 4's exact Jacobian (D=3, and D=4 with the beta column) and the
+# walkers' (N=512).  Bars: K9 against the plain lift (the same operations
+# in the same order) f64 1e-12 and f32 1e-6 relative; K9T against
+# torch.func over the plain lift 1e-12 relative (max |a - b| / max |b|).
+LIFT_CASES = {"config3_map": (MAP_N, 1, "float32"),
+              "config3_fd_stack": (MAP_N, 4, "float32"),
+              "config4_frozen_fwd": (4096, 4, "float64"),
+              "config5_fd_stack": (512, 4, "float32")}
+LIFT_TANGENT_CASES = {"config4_D3": (4096, 1, 3), "config4_D4": (4096, 1, 4),
+                      "walkers_D4": (512, 1, 4)}
+LIFT_BARS = {"float64": 1e-12, "float32": 1e-6, "tangent": 1e-12}
+LIFT_SRC = f"{PKG}/csrc/lift.cu"
+LIFT_TPU = "armadillocudalinearinterpolation_tpu/model/lift.py:66"
+# K9's operations, counted from csrc/lift.cu's site body (each exp or
+# division one operation; the branch a select keeps): per site 5 (the
+# coordinate, the drive, the clamp); per site and spike 11 (the tests, the
+# decay exp(-x/c), the sums), then the voltage pair ahead of the spike 111
+# and its reset 4, or behind it 33, and the synapse pair behind the spike
+# 21, else 49.  K9T: the primal and at least one operation a direction for
+# each of its operations (a product's tangent takes three), a lower bound.
+K9_OPS_SITE, K9_OPS_SPIKE = 5, 11
+K9_OPS_AHEAD, K9_OPS_BEHIND = 115, 33
+K9_OPS_SYN_BEHIND_SPIKE, K9_OPS_SYN_ELSE = 21, 49
 # repairs: more grids than one launch dimension holds, more 1-D batches,
 # and N above one CTA's shared memory (f64 evolve: 8273, replay: 8297)
 REPAIR_GRIDS = (65536, 6, 9, 5)
@@ -407,7 +440,8 @@ def kernel_vs_plain(pt, torch, dev, dtype: str, n_real: int, Z, window=0):
     """K1 and its plain version on the same inputs: the lifts of the stack
     ``Z`` at N=512 under the seed-0 draw of ``n_real`` realisations, on
     every lane or with the certified window of ``window`` lanes."""
-    from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
+    from armadillocudalinearinterpolation_torch.model import (
+        emap, evolve_cuda, lift_cuda)
     from armadillocudalinearinterpolation_torch.model.evolve_batched import (
         evolve_ensemble_batched)
     cfg = pt.ModelConfig(n_neurons=SLICE_N, n_real=n_real, dtype=dtype,
@@ -452,8 +486,9 @@ def kernel_vs_plain(pt, torch, dev, dtype: str, n_real: int, Z, window=0):
 
 
 def run_slice(pt, torch, dev):
-    """The Driver.cu program through the public API, on the kernel."""
-    from armadillocudalinearinterpolation_torch.model import evolve_cuda
+    """The Driver.cu program through the public API, on the kernels."""
+    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
+                                                              lift_cuda)
     cfg = pt.ModelConfig(n_neurons=SLICE_N, n_real=SLICE_R, dtype="float32")
     params = pt.MapParams.create(BETA, SIGMA, dtype="float32", device=dev)
     ncfg = pt.NewtonConfig(tolerance=1e-4, max_iterations=10,
@@ -468,7 +503,7 @@ def run_slice(pt, torch, dev):
 
     z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
-    evolve_cuda.LAUNCHES = 0
+    evolve_cuda.LAUNCHES = lift_cuda.LAUNCHES = 0
     t0 = time.perf_counter()
     res = pt.newton_solve(counted, z0, ncfg)
     n_unstable = pt.num_unstable_eigenvalues(
@@ -479,7 +514,7 @@ def run_slice(pt, torch, dev):
                                 jacobian=res.jacobian)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = evolve_cuda.LAUNCHES
+    launches, lifts = evolve_cuda.LAUNCHES, lift_cuda.LAUNCHES
 
     sol = res.solution.double().cpu()
     dist = float((sol - torch.tensor(REFERENCE_POINT,
@@ -492,14 +527,15 @@ def run_slice(pt, torch, dev):
            "solution": sol.tolist(), "distance_to_reference": dist,
            "eigenvalues": [[float(e.real), float(e.imag)] for e in ev],
            "n_unstable": n_unstable, "map_evaluations": evals,
-           "evolve_launches": launches, "wall_s": wall}
+           "evolve_launches": launches, "lift_launches": lifts,
+           "wall_s": wall}
     emit(row)
     require(res.converged, "slice: Newton did not converge")
     require(res.residual_norm <= 1e-4, "slice: |F| > 1e-4")
     require(bool(torch.isfinite(sol).all()), "slice: non-finite solution")
     require(dist <= 2e-2, f"slice: solution {dist} from the reference point")
-    require(launches == evals, f"slice: {launches} kernel launches for "
-            f"{evals} map evaluations")
+    require(launches == evals == lifts, f"slice: {launches} K1 and {lifts} "
+            f"K9 launches for {evals} map evaluations")
     return row
 
 
@@ -520,7 +556,8 @@ def map_eval(pt, torch, dev, smi: str):
     version on the card, in turns, and the kernel on every lane beside it,
     which must give every row equal.  The launch count is set to 0 just
     before the first windowed evaluation and read just after."""
-    from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
+    from armadillocudalinearinterpolation_torch.model import (
+        emap, evolve_cuda, lift_cuda)
     from armadillocudalinearinterpolation_torch.model.evolve import (
         evolve_ensemble)
     from armadillocudalinearinterpolation_torch.model.evolve_batched import (
@@ -539,10 +576,10 @@ def map_eval(pt, torch, dev, smi: str):
                                     (cfg, "torch")))
     z0 = torch.tensor(INITIAL_GUESS, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
-    evolve_cuda.LAUNCHES = 0
+    evolve_cuda.LAUNCHES = lift_cuda.LAUNCHES = 0
     fk = Fk(z0)
     torch.cuda.synchronize()
-    launches = evolve_cuda.LAUNCHES
+    launches, lifts = evolve_cuda.LAUNCHES, lift_cuda.LAUNCHES
     fk_full, fp = Fk_full(z0), Fp(z0)          # and warm-up
     torch.cuda.synchronize()
     k_ms, full_ms, p_ms = [], [], []
@@ -600,6 +637,7 @@ def map_eval(pt, torch, dev, smi: str):
     events, n_fallbacks = int(res.n_events.sum()), int(fallbacks.sum())
     row = {"phase": "map_eval", "N": MAP_N, "R": MAP_R, "dtype": "float32",
            "evolve_window": MAP_WINDOW, "launches": launches,
+           "lift_launches": lifts,
            "kernel_ms_median": statistics.median(k_ms),
            "kernel_ms": k_ms,
            "full_lane_ms_median": statistics.median(full_ms),
@@ -625,7 +663,204 @@ def map_eval(pt, torch, dev, smi: str):
             f"map_eval: kernel vs plain residual {row['residual_diff']}")
     require(launches == 1, f"map_eval: {launches} K1 launches for one "
             "evaluation")
+    require(lifts == 1, f"map_eval: {lifts} K9 launches for one evaluation")
     return row
+
+
+def lift_ops(torch, cfg, U) -> int:
+    """K9's operations on the ``(P, n_spikes + 1)`` points ``U``: for each
+    point and spike, its sites ahead of the spike and behind it, as these
+    inputs have them (``K9_OPS_*``)."""
+    N = cfg.n_neurons
+    x = cfg.half_width - cfg.dx * torch.arange(N, dtype=U.dtype,
+                                               device=U.device)
+    c = U[:, :1]
+    ops = U.shape[0] * N * K9_OPS_SITE
+    for m in range(1, cfg.n_spikes + 1):
+        cu = c * U[:, m:m + 1]
+        ahead = int((x - cu > 0).sum())
+        behind = int((cu - x > 0).sum())
+        spikes = U.shape[0] * N
+        ops += (spikes * K9_OPS_SPIKE + ahead * K9_OPS_AHEAD
+                + (spikes - ahead) * K9_OPS_BEHIND
+                + behind * K9_OPS_SYN_BEHIND_SPIKE
+                + (spikes - behind) * K9_OPS_SYN_ELSE)
+    return ops
+
+
+def lift_through_the_map(pt, torch, dev) -> dict:
+    """The map at the Driver.cu guess through K9 and through the plain
+    lift (``emap.lift`` replaced), at config 3 (f32, W=128) and config 4
+    (f64); at config 4 also the exact Jacobian through K9T and through
+    ``torch.func`` over the plain lift (``emap.lift_tangents`` replaced
+    by its earlier form)."""
+    from armadillocudalinearinterpolation_torch.model import emap
+    from armadillocudalinearinterpolation_torch.model.lift import lift_plain
+
+    def plain_lift(cfg, params, U):
+        return lift_plain(cfg, params.beta.to(dtype=U.dtype,
+                                              device=U.device), U)
+
+    def plain_lift_tangents(cfg, params, Zs, dZ, dpb):
+        pb = params.beta.to(dtype=Zs.dtype, device=Zs.device).reshape(
+            -1, 1).expand(Zs.shape[0], 1)
+
+        def lift_of(u, b):
+            return lift_plain(cfg, b, u)
+        U, dU = emap.z_to_u(Zs), emap.z_to_u(dZ)
+        dv0, ds0 = torch.func.vmap(lambda du, db: torch.func.jvp(
+            lift_of, (U, pb), (du, db))[1])(dU, dpb)
+        return (U, dU, *(x.contiguous() for x in (*lift_of(U, pb), dv0,
+                                                   ds0)))
+
+    out = {}
+    real = emap.lift, emap.lift_tangents
+    for name, kw in (("config3", dict(n_neurons=MAP_N, n_real=MAP_R,
+                                      dtype="float32",
+                                      evolve_window=MAP_WINDOW)),
+                     ("config4", CONFIG4)):
+        cfg = pt.ModelConfig(**kw)
+        params = pt.MapParams.create(BETA, SIGMA, dtype=cfg.dtype,
+                                     device=dev)
+        F = pt.make_residual_fn(cfg, params, 0, device=dev)
+        z = torch.tensor(INITIAL_GUESS, dtype=cfg.torch_dtype, device=dev)
+        f_k9 = F(z)
+        J_k9 = F.value_and_jacobian(z)[1] if name == "config4" else None
+        emap.lift, emap.lift_tangents = plain_lift, plain_lift_tangents
+        try:
+            f_plain = F(z)
+            J_plain = (F.value_and_jacobian(z)[1] if name == "config4"
+                       else None)
+        finally:
+            emap.lift, emap.lift_tangents = real
+        out[name] = {"dtype": cfg.dtype,
+                     "residual_diff": max_abs(f_k9, f_plain),
+                     "residual_equal": bool(torch.equal(f_k9, f_plain))}
+        if J_k9 is not None:
+            out[name]["jacobian_rel_diff"] = rel_diff(J_k9, J_plain)
+    return out
+
+
+def lift_phase(pt, torch, dev, smi: str):
+    """K9 and K9T at the shapes the main path gives them (``LIFT_CASES``,
+    ``LIFT_TANGENT_CASES``): K9 through ``pt.lift`` (the map's entry: one
+    rate expanded over the points) against the plain lift on the same
+    inputs, with the share of equal bits; K9T through
+    ``emap.lift_tangents`` (the exact Jacobian's entry) against
+    ``torch.func`` over the plain lift (the parent's ``lift_tangents``),
+    its primal against K9's (equal bits required); each warm and back to
+    back (``timed``), beside the plain version, device µs by
+    ``torch.profiler``, K9's host µs a call through ``pt.lift`` and through
+    its op alone, and the bound from the bytes and this run's
+    operations; then the map through K9 against the map through the plain
+    lift at the evolve's residual bars, and the exact Jacobian through K9T
+    against the one through ``torch.func`` at 1e-12
+    (:func:`lift_through_the_map`).  Returns the two ``kernels`` entries
+    without launches."""
+    from armadillocudalinearinterpolation_torch.model import emap, lift_cuda
+    from armadillocudalinearinterpolation_torch.model.lift import lift_plain
+
+    def points(P, dtype):
+        return emap.z_to_u(fd_stack(torch, dev, dtype, 1e-3)[:P])
+
+    k9 = {}
+    for name, (N, P, dtype) in LIFT_CASES.items():
+        cfg = pt.ModelConfig(n_neurons=N, n_real=1, dtype=dtype)
+        params = pt.MapParams.create(BETA, SIGMA, dtype=dtype, device=dev)
+        U = points(P, cfg.torch_dtype)
+        v0, s0 = pt.lift(cfg, params, U)
+        want = lift_plain(cfg, params.beta, U)
+        ms, ms_b2b = timed(lambda: pt.lift(cfg, params, U), torch)
+        plain_ms, _ = timed(lambda: lift_plain(cfg, params.beta, U), torch,
+                            n=5)
+        us, per_kernel = device_us(lambda: pt.lift(cfg, params, U), torch)
+        beta = params.beta.reshape(1).expand(P)
+        host = {"lift": host_us(lambda: pt.lift(cfg, params, U), torch),
+                "op": host_us(lambda: lift_cuda.lift_op(
+                    lift_cuda.config_key(cfg), U, beta), torch)}
+        b_ms, b_by = bound(nbytes(U, params.beta, v0, s0),
+                           lift_ops(torch, cfg, U), dtype)
+        k9[name] = {
+            "N": N, "points": P, "dtype": dtype,
+            "rel_diff": max(rel_diff(a, b) for a, b in zip((v0, s0), want)),
+            "max_abs_err": max(max_abs(a, b) for a, b in zip((v0, s0),
+                                                             want)),
+            "equal_bits_share": float(sum((a == b).sum() for a, b in zip(
+                (v0, s0), want))) / (2 * v0.numel()),
+            "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+            "device_us": us, "device_us_by_kernel": per_kernel,
+            "host_us_per_call": host, "bound_ms": b_ms, "bound_by": b_by}
+    k9t = {}
+    for name, (N, P, D) in LIFT_TANGENT_CASES.items():
+        cfg = pt.ModelConfig(n_neurons=N, n_real=1, dtype="float64")
+        params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
+        Z = fd_stack(torch, dev, torch.float64, 1e-3)[:P]
+        eye = torch.eye(D, dtype=torch.float64, device=dev)
+        dZ = eye[:, None, :3].expand(D, P, 3).contiguous()
+        dpb = eye[:, None, 3:].sum(-1, keepdim=True).expand(D, P, 1)
+        dpb = dpb.contiguous()
+        U, dU, v0, s0, dv0, ds0 = emap.lift_tangents(cfg, params, Z, dZ, dpb)
+        beta = params.beta.reshape(1).expand(P)
+        db = dpb[..., 0]
+
+        def plain():
+            def lift_of(u, b):
+                return lift_plain(cfg, b[:, None], u)
+            return torch.func.vmap(lambda a, b: torch.func.jvp(
+                lift_of, (U, beta), (a, b))[1])(dU, db)
+        dv, ds = plain()
+        k9_out = lift_cuda.lift_op(lift_cuda.config_key(cfg), U, beta)
+
+        def kernel():
+            return lift_cuda.lift_tangent(cfg, U, beta, dU, db)
+        ms, ms_b2b = timed(kernel, torch)
+        plain_ms, _ = timed(plain, torch, n=5)
+        us, per_kernel = device_us(kernel, torch)
+        b_ms, b_by = bound(nbytes(U, params.beta, dU, db, v0, s0, dv0, ds0),
+                           (1 + D) * lift_ops(torch, cfg, U), "float64")
+        k9t[name] = {
+            "N": N, "points": P, "directions": D,
+            "rel_diff": max(max(rel_diff(a[d], b[d]) for d in range(D))
+                            for a, b in ((dv0, dv), (ds0, ds))),
+            "max_abs_err": max(max_abs(dv0, dv), max_abs(ds0, ds)),
+            "primal_equals_k9": bool(torch.equal(v0, k9_out[0])
+                                     and torch.equal(s0, k9_out[1])),
+            "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+            "device_us": us, "device_us_by_kernel": per_kernel,
+            "bound_ms": b_ms, "bound_by": b_by}
+    through = lift_through_the_map(pt, torch, dev)
+    emit({"phase": "lift", "bars": LIFT_BARS, "k9": k9, "k9t": k9t,
+          "through_the_map": through, "card": smi})
+    for name, r in through.items():
+        require(r["residual_diff"] <= TARGETS[r["dtype"]]["residual"],
+                f"lift {name}: the map through K9 is {r['residual_diff']} "
+                "from the map through the plain lift")
+    require(through["config4"]["jacobian_rel_diff"] <= LIFT_BARS["tangent"],
+            "lift: the exact Jacobian through K9T is "
+            f"{through['config4']['jacobian_rel_diff']} from the one "
+            "through torch.func")
+    for name, r in k9.items():
+        require(r["rel_diff"] <= LIFT_BARS[r["dtype"]],
+                f"lift {name}: K9 is {r['rel_diff']} from the plain lift")
+    for name, r in k9t.items():
+        require(r["rel_diff"] <= LIFT_BARS["tangent"],
+                f"lift {name}: K9T is {r['rel_diff']} from torch.func")
+        require(r["primal_equals_k9"], f"lift {name}: K9T's primal differs "
+                "from K9's")
+
+    def entry(kname, cases, head, shape):
+        c = cases[head]
+        return {"name": kname, "route": "cuda", "source": LIFT_SRC,
+                "replaces": LIFT_TPU,
+                "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None, "device_us": c["device_us"],
+                "shape": shape, "by_case": cases}
+    return (entry("lift_kernel", k9, "config3_map",
+                  "config 3's map evaluation: 1 point x N=1024, f32"),
+            entry("lift_tangent_kernel", k9t, "config4_D3",
+                  "config 4's exact Jacobian: 1 point x N=4096, D=3, f64"))
 
 
 def interp_inputs(torch, dev, shape, dtype, seed, lo=0.0, hi=None):
@@ -1614,7 +1849,7 @@ def staged(pt, torch, dev, smi: str):
     the plain windowed log; K2 against its plain version; the replay
     against the direct fp64 evolve; the timings and the profiles."""
     from armadillocudalinearinterpolation_torch.model import (
-        evolve_cuda, replay_cuda)
+        evolve_cuda, lift_cuda, replay_cuda)
     from armadillocudalinearinterpolation_torch.model.evolve_batched import (
         evolve_ensemble_batched)
     from armadillocudalinearinterpolation_torch.model.replay import (
@@ -1658,6 +1893,7 @@ def staged(pt, torch, dev, smi: str):
                            ("warm_full_lane", z0 + 1e-3, cfg_full)):
             stages.clear()
             evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
+            lift_cuda.LAUNCHES = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = pt.newton_solve_staged(c, params, z, beta=beta,
@@ -1665,7 +1901,8 @@ def staged(pt, torch, dev, smi: str):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {"evolve_kernel": evolve_cuda.LAUNCHES,
-                        "replay_kernel": replay_cuda.LAUNCHES}
+                        "replay_kernel": replay_cuda.LAUNCHES,
+                        "lift_kernel": lift_cuda.LAUNCHES}
             sol = res.solution
             f = pt.event_driven_map(cfg, params, beta, sol,
                                     evolve_backend="replay")
@@ -1884,6 +2121,7 @@ def staged(pt, torch, dev, smi: str):
         "threads": {k: v["threads"] for k, v in k2.items()},
         "registers": replay_registers()}
     log_info = {"launches": solves["cold"]["launches"]["evolve_kernel"],
+                "lift_launches": solves["cold"]["launches"]["lift_kernel"],
                 "identical_share": log_share,
                 "windowed_vs_full_lane_identical_rows": full_share,
                 "ms_config4_f32": log_ms,
@@ -2077,7 +2315,8 @@ def sweep(pt, torch, dev, smi):
     K1, the lift and the rest on each family: the sweep's (from its first
     converged solution) and the slow family's, reached by the slice's FD
     step of 3e-4."""
-    from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
+    from armadillocudalinearinterpolation_torch.model import (
+        emap, evolve_cuda, lift_cuda)
     cfg = pt.ModelConfig(**CONFIG5)
     ncfg = pt.NewtonConfig(**SWEEP_NEWTON)
     stack = fd_stack(torch, dev, torch.float32, ncfg.fd_epsilon)
@@ -2092,7 +2331,7 @@ def sweep(pt, torch, dev, smi):
     log, restore = count_fallbacks(torch, emap)
     try:
         torch.cuda.synchronize()
-        evolve_cuda.LAUNCHES = 0
+        evolve_cuda.LAUNCHES = lift_cuda.LAUNCHES = 0
         for predict in (True, False):
             counters["evaluations"], start, k1_before = 0, len(log), \
                 evolve_cuda.LAUNCHES
@@ -2103,7 +2342,7 @@ def sweep(pt, torch, dev, smi):
             fams = [family(z) for _, z in run["solutions"]]
             run["families"] = {f: fams.count(f) for f in set(fams)}
             runs.append(run)
-        launches = evolve_cuda.LAUNCHES
+        launches, lifts = evolve_cuda.LAUNCHES, lift_cuda.LAUNCHES
     finally:
         restore()
     breakdown = {}
@@ -2119,6 +2358,7 @@ def sweep(pt, torch, dev, smi):
         pt, torch, emap, slow_solve, BETA + SWEEP_BETA_STEP, slow.solution)
     row = {"phase": "sweep", "config": CONFIG5, "sigma": SIGMA,
            "newton": SWEEP_NEWTON, "steps": SWEEP_STEPS, "launches": launches,
+           "lift_launches": lifts,
            "k1_vs_plain": [{k: c[k] for k in (
                "P", "identical_share", "max_residual_diff",
                "kernel_ms_single_call", "plain_ms_single_call")}
@@ -2139,6 +2379,7 @@ def sweep(pt, torch, dev, smi):
         require(r["k1_launches"] > 0, f"sweep {name}: K1 was not launched")
     require(launches == len(log), f"sweep: {launches} K1 launches, "
             f"{len(log)} with their fallbacks counted")
+    require(lifts > 0, "sweep: K9 was not launched")
     require(bool(slow.converged) and family(slow.solution.tolist()) == "slow",
             "sweep: the slow-family solve at FD step 3e-4 did not converge "
             "there")
@@ -2182,7 +2423,7 @@ def cli(pt, torch, dev, smi):
     and an rc 1 must come with the non-finite stop."""
     from armadillocudalinearinterpolation_torch.cli import driver
     from armadillocudalinearinterpolation_torch.model import (
-        evolve_cuda, replay_cuda)
+        evolve_cuda, lift_cuda, replay_cuda)
     from armadillocudalinearinterpolation_torch.utils.checkpoint import (
         ContinuationCheckpoint)
     c5 = config5_cli_argv()
@@ -2208,6 +2449,7 @@ def cli(pt, torch, dev, smi):
                     SWEEP_NEWTON["fd_epsilon"]), "--steps", "1"]}
         torch.cuda.synchronize()
         evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
+        lift_cuda.LAUNCHES = lift_cuda.TANGENT_LAUNCHES = 0
         for name, argv in plan.items():
             k1, k2 = evolve_cuda.LAUNCHES, replay_cuda.LAUNCHES
             t0 = time.perf_counter()
@@ -2220,7 +2462,9 @@ def cli(pt, torch, dev, smi):
                                     if ln.startswith(("step", "resuming",
                                                       "ComputeF", "  eig"))]}
         launches = {"evolve_kernel_windowed": evolve_cuda.LAUNCHES,
-                    "replay_kernel": replay_cuda.LAUNCHES}
+                    "replay_kernel": replay_cuda.LAUNCHES,
+                    "lift_kernel": lift_cuda.LAUNCHES,
+                    "lift_tangent_kernel": lift_cuda.TANGENT_LAUNCHES}
         steps = {k: ContinuationCheckpoint(d).load_all()
                  for k, d in dirs.items()}
     resumed, full, staged_steps = (steps["resumed"], steps["full"],
@@ -2295,19 +2539,23 @@ def replay_registers(kernel: str = "replay_kernel") -> dict:
 
 
 def launch_counts():
-    """The kernels' launch counters of the map path: K1, K2 and K2T."""
-    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
-                                                              replay_cuda)
+    """The kernels' launch counters of the map path: K1, K2, K2T, K9 and
+    K9T."""
+    from armadillocudalinearinterpolation_torch.model import (
+        evolve_cuda, lift_cuda, replay_cuda)
     return {"evolve_kernel": evolve_cuda.LAUNCHES,
             "replay_kernel": replay_cuda.LAUNCHES,
-            "replay_tangent_kernel": replay_cuda.TANGENT_LAUNCHES}
+            "replay_tangent_kernel": replay_cuda.TANGENT_LAUNCHES,
+            "lift_kernel": lift_cuda.LAUNCHES,
+            "lift_tangent_kernel": lift_cuda.TANGENT_LAUNCHES}
 
 
 def zero_launch_counts():
-    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
-                                                              replay_cuda)
+    from armadillocudalinearinterpolation_torch.model import (
+        evolve_cuda, lift_cuda, replay_cuda)
     evolve_cuda.LAUNCHES = replay_cuda.LAUNCHES = 0
     replay_cuda.TANGENT_LAUNCHES = 0
+    lift_cuda.LAUNCHES = lift_cuda.TANGENT_LAUNCHES = 0
 
 
 def rel_diff(got, want) -> float:
@@ -2324,7 +2572,8 @@ def k2t_cases(pt, torch, dev, cfg, params, beta, z) -> dict:
     backend), each ``(args, kwargs, primal)`` with ``primal`` what its
     primal must equal: None for K2's (root-find) or the direct evolve's
     result (logged)."""
-    from armadillocudalinearinterpolation_torch.model import emap, evolve_cuda
+    from armadillocudalinearinterpolation_torch.model import (
+        emap, evolve_cuda, lift_cuda)
     from armadillocudalinearinterpolation_torch.model.replay import (
         compute_schedule)
     f64 = torch.float64
@@ -2665,20 +2914,23 @@ def exact(pt, torch, dev, smi: str):
 
 
 def map_op_calls(pt, torch, dev) -> dict:
-    """K1, K2 and K2T at a size where the device time is negligible (N=256,
-    one row, f64; K1 to a horizon of 0.01, K2 and K2T on an empty log),
+    """K1, K2, K2T, K9 and K9T at a size where the device time is
+    negligible (N=256, one row, f64; K1 to a horizon of 0.01, K2 and K2T on
+    an empty log, K9T at D=3),
     each as ``(through_op, kernel_alone)``: the public wrapper, which calls
     the op through PyTorch's dispatcher, and the op's CUDA kernel called
     as a Python function (the checks, the allocations and the ``ctypes``
     launch), for :func:`host_us`."""
-    from armadillocudalinearinterpolation_torch.model import (evolve_cuda,
-                                                              replay_cuda)
+    from armadillocudalinearinterpolation_torch.model import (
+        evolve_cuda, lift_cuda, replay_cuda)
     f64 = torch.float64
     cfg = pt.ModelConfig(n_neurons=256, n_real=1, dtype="float64",
                          t_horizon=0.01)
     params = pt.MapParams.create(BETA, 0.0, dtype="float64", device=dev)
     Z = torch.tensor([INITIAL_GUESS], dtype=f64, device=dev)
-    v0, s0 = (x.contiguous() for x in pt.lift(cfg, params, pt.z_to_u(Z)))
+    U, rate = pt.z_to_u(Z), params.beta.reshape(1)
+    dU = torch.ones(3, 1, 4, dtype=f64, device=dev)
+    v0, s0 = (x.contiguous() for x in pt.lift(cfg, params, U))
     ii = pt.initial_spike_indices(cfg, Z).contiguous()
     beta = torch.full((1, 256), BETA, dtype=f64, device=dev)
     sched = torch.zeros(1, 128, dtype=torch.int32, device=dev)
@@ -2693,7 +2945,10 @@ def map_op_calls(pt, torch, dev) -> dict:
                           (key, sched, n0, v0, s0, beta, ii, 1)),
         "replay_tangent_kernel": (
             replay_cuda.replay_tangent_op,
-            (key, sched, n0, v0, s0, beta, ii, dv, dv, None, dp, None, 1))}
+            (key, sched, n0, v0, s0, beta, ii, dv, dv, None, dp, None, 1)),
+        "lift_kernel": (lift_cuda.lift_op, (key, U, rate)),
+        "lift_tangent_kernel": (lift_cuda.lift_tangent_op,
+                                (key, U, rate, dU, dp))}
     return {name: (functools.partial(op, *args),
                    functools.partial(op._init_fn, *args))
             for name, (op, args) in ops.items()}
@@ -2707,12 +2962,14 @@ def autodiff(pt, torch, dev, smi: str):
     backend: ``jacfwd_cols(F)(Z)``, ``torch.func.jacfwd(F)(Z)`` and
     ``torch.autograd.forward_ad`` (three columns) against
     ``F.value_and_jacobian(Z)`` within ``AUTODIFF_BAR`` relative; each
-    route's wall (CUDA events, medians of 5 in turns) and its K1, K2 and
-    K2T launches (one K2T a ``jacfwd`` required), the launch counts of
-    ``jacfwd_cols`` at config 4 set to 0 just before and read just after;
-    a map evaluation without a tangent (K1 once, no K2T); and the host µs
-    a call of K1, K2 and K2T through their ops against the op's kernel
-    called alone (:func:`map_op_calls`, 1000 calls each, in turns)."""
+    route's wall (CUDA events, medians of 5 in turns) and its K1, K2,
+    K2T, K9 and K9T launches (one K2T, one K9 and one K9T a ``jacfwd``
+    required, one K9T and no K9 for ``value_and_jacobian``), the launch
+    counts of ``jacfwd_cols`` at config 4 set to 0 just before and read
+    just after; a map evaluation without a tangent (K1 and K9 once, no K2T
+    or K9T); and the host µs a call of K1, K2, K2T, K9 and K9T through
+    their ops against the op's kernel called alone (:func:`map_op_calls`,
+    1000 calls each, in turns)."""
     import torch.autograd.forward_ad as fwAD
     from armadillocudalinearinterpolation_torch.solvers.newton import (
         jacfwd_cols)
@@ -2778,12 +3035,17 @@ def autodiff(pt, torch, dev, smi: str):
             require(d <= AUTODIFF_BAR, f"autodiff {name}: {k} is {d} "
                     "from value_and_jacobian")
         for k in ("jacfwd_cols", "func_jacfwd"):
-            require(case["launches"][k]["replay_tangent_kernel"] == 1,
-                    f"autodiff {name}: {k} launched K2T "
-                    f"{case['launches'][k]['replay_tangent_kernel']} times")
+            got = {n: case["launches"][k][n] for n in (
+                "replay_tangent_kernel", "lift_kernel", "lift_tangent_kernel")}
+            require(set(got.values()) == {1}, f"autodiff {name}: {k} "
+                    f"launched K2T, K9 and K9T {got} times")
+        vj = case["launches"]["value_and_jacobian"]
+        require(vj["lift_tangent_kernel"] == 1 and vj["lift_kernel"] == 0,
+                f"autodiff {name}: value_and_jacobian launched {vj}")
         plain = case["launches"]["map_without_tangent"]
         require(plain == {"evolve_kernel": 1, "replay_tangent_kernel": 0,
-                          "replay_kernel": int(name.endswith("replay"))},
+                          "replay_kernel": int(name.endswith("replay")),
+                          "lift_kernel": 1, "lift_tangent_kernel": 0},
                 f"autodiff {name}: a map evaluation without a tangent "
                 f"launched {plain}")
     return path, host
@@ -3239,8 +3501,10 @@ def main() -> int:
     for entry, windowed_checks in ((full, False), (windowed, True)):
         entry["max_abs_err"] = max(c["max_residual_diff"] for c in checks
                                    if bool(c["window"]) == windowed_checks)
-    slice_launches = run_slice(pt, torch, dev)["evolve_launches"]
+    sl = run_slice(pt, torch, dev)
+    slice_launches = sl["evolve_launches"]
     m = map_eval(pt, torch, dev, smi)
+    lift_kernel, lift_tangent_kernel = lift_phase(pt, torch, dev, smi)
     events = m["evolve_events_total"]
     for entry, layer, plain, window, fallbacks in (
             (full, "evolve_full_lane", "full_lane", 0, 0),
@@ -3318,12 +3582,43 @@ def main() -> int:
         "shard": sh["launches"]["replay_tangent_kernel"]}
     tangent_kernel["launches"] = sum(
         tangent_kernel["launches_by_path"].values())
+    # K9 runs wherever the map is lifted, K9T wherever an exact Jacobian
+    # is taken (exact, autodiff, the walkers' exact correctors, the shard
+    # phase's exact stage 2); each path's counts set to 0 just before it
+    # and read just after
+    lift_kernel["launches_by_path"] = {
+        "slice": sl["lift_launches"], "map_eval": m["lift_launches"],
+        "staged": log["lift_launches"], "sweep": sw["lift_launches"],
+        "cli": cl["launches"]["lift_kernel"],
+        "exact": ex_launches["lift_kernel"],
+        "autodiff": sum(c["lift_kernel"] for c in ad_launches.values()),
+        "walkers": wk["launches_cli"]["lift_kernel"]
+        + wk["launches_config4"]["lift_kernel"],
+        "shard": sh["launches"]["lift_kernel"],
+        "oracle": orc["launches"]["lift_kernel"]}
+    lift_tangent_kernel["launches_by_path"] = {
+        "cli": cl["launches"]["lift_tangent_kernel"],
+        "exact": ex_launches["lift_tangent_kernel"],
+        "autodiff": sum(c["lift_tangent_kernel"]
+                        for c in ad_launches.values()),
+        "walkers": wk["launches_cli"]["lift_tangent_kernel"]
+        + wk["launches_config4"]["lift_tangent_kernel"],
+        "shard": sh["launches"]["lift_tangent_kernel"]}
+    for entry, paths in ((lift_kernel, lift_kernel["launches_by_path"]),
+                         (lift_tangent_kernel, {
+                             k: v for k, v in lift_tangent_kernel[
+                                 "launches_by_path"].items() if k != "cli"})):
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        idle = [k for k, v in paths.items() if not v]
+        require(not idle, f"{entry['name']} was not launched on {idle}")
     for entry, op in ((full, "evolve_kernel"), (windowed, "evolve_kernel"),
                       (replay_kernel, "replay_kernel"),
-                      (tangent_kernel, "replay_tangent_kernel")):
+                      (tangent_kernel, "replay_tangent_kernel"),
+                      (lift_kernel, "lift_kernel"),
+                      (lift_tangent_kernel, "lift_tangent_kernel")):
         entry["op_host_us"] = ad_host[op]
     kernels = [*kernels, *interp_kernels, *interp1d_kernels, replay_kernel,
-               tangent_kernel]
+               tangent_kernel, lift_kernel, lift_tangent_kernel]
     missing = [k["name"] for k in kernels if k["device_us"] is None]
     require(not missing, f"no device time measured for {missing}")
     print(smi, flush=True)
