@@ -31,6 +31,12 @@ from .lift import lift_plain
 
 LAUNCHES = 0
 TANGENT_LAUNCHES = 0
+# the kernels' grid (csrc/lift.cu): grid.x the points times their tiles of
+# 16, 32 or 64 sites, at most 2**31 - 1 (as is N, a C int) for the tiles
+# of SITES_PER_CTA, the smallest; grid.y K9T's directions
+SITES_PER_CTA = 16
+MAX_GRID_X = 2**31 - 1
+MAX_DIRECTIONS = 65535
 
 _ENTRY = {torch.float32: "atorch_lift_f32", torch.float64: "atorch_lift_f64"}
 
@@ -43,7 +49,8 @@ def _constants(c: ModelConfig):
 def check_lift_inputs(c: ModelConfig, U: torch.Tensor,
                       beta: torch.Tensor) -> None:
     """Refuse what the lift ops do not take: ``U`` ``(P, n_spikes + 1)``
-    float32 or float64, ``beta`` ``(P,)`` of its dtype and device."""
+    float32 or float64, ``beta`` ``(P,)`` of its dtype and device, and no
+    more tiles of ``n_neurons`` sites than one launch's grid holds."""
     M = c.n_spikes
     if U.ndim != 2 or U.shape[1] != M + 1 or U.dtype not in _ENTRY:
         raise ValueError(f"U must be (P, {M + 1}) float32 or float64; got "
@@ -53,13 +60,22 @@ def check_lift_inputs(c: ModelConfig, U: torch.Tensor,
         raise ValueError(f"beta must be ({U.shape[0]},) {U.dtype} on "
                          f"{U.device}; got {tuple(beta.shape)} {beta.dtype} "
                          f"on {beta.device}")
+    tiles = -(-c.n_neurons // SITES_PER_CTA)
+    if c.n_neurons > MAX_GRID_X or U.shape[0] * tiles > MAX_GRID_X:
+        raise ValueError(f"{U.shape[0]} points of {c.n_neurons} sites are "
+                         f"{U.shape[0] * tiles} CTAs of {SITES_PER_CTA} "
+                         f"sites, more than one launch takes ({MAX_GRID_X})")
 
 
 def check_tangent_inputs(c: ModelConfig, U, beta, dU, dbeta) -> int:
     """:func:`check_lift_inputs`, and ``dU`` ``(D, P, n_spikes + 1)``,
-    ``dbeta`` ``(D, P)`` of ``U``'s dtype and device; returns ``D``."""
+    ``dbeta`` ``(D, P)`` of ``U``'s dtype and device, ``D`` at most
+    ``MAX_DIRECTIONS``; returns ``D``."""
     check_lift_inputs(c, U, beta)
     D = dU.shape[0] if dU.ndim == 3 else 0
+    if D > MAX_DIRECTIONS:
+        raise ValueError(f"{D} directions: K9T takes at most "
+                         f"{MAX_DIRECTIONS} in one launch")
     for name, x, shape in (("dU", dU, (D, *U.shape)),
                            ("dbeta", dbeta, (D, U.shape[0]))):
         if (D < 1 or x.shape != shape or x.dtype != U.dtype

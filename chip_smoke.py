@@ -307,16 +307,26 @@ LIFT_TANGENT_CASES = {"config4_D3": (4096, 1, 3), "config4_D4": (4096, 1, 4),
 LIFT_BARS = {"float64": 1e-12, "float32": 1e-6, "tangent": 1e-12}
 LIFT_SRC = f"{PKG}/csrc/lift.cu"
 LIFT_TPU = "armadillocudalinearinterpolation_tpu/model/lift.py:66"
-# K9's operations, counted from csrc/lift.cu's site body (each exp or
-# division one operation; the branch a select keeps): per site 5 (the
-# coordinate, the drive, the clamp); per site and spike 11 (the tests, the
-# decay exp(-x/c), the sums), then the voltage pair ahead of the spike 111
-# and its reset 4, or behind it 33, and the synapse pair behind the spike
-# 21, else 49.  K9T: the primal and at least one operation a direction for
-# each of its operations (a product's tangent takes three), a lower bound.
-K9_OPS_SITE, K9_OPS_SPIKE = 5, 11
-K9_OPS_AHEAD, K9_OPS_BEHIND = 115, 33
-K9_OPS_SYN_BEHIND_SPIKE, K9_OPS_SYN_ELSE = 21, 49
+# K9's operations, counted from csrc/lift.cu's body (each sum,
+# difference, product, quotient, negation, comparison and exp one
+# operation; the branch a select keeps), as the function needs them: per
+# site 9 (the coordinate, the decay exp(-x/c), the drive, the clamp); per
+# site and spike 10 (c u, the tests, the sums); the voltage pair ahead of
+# the spike 2 x 15 and its reset 4, or behind it 2 x 7; the synapse pair
+# behind the spike 2 x 3, else 2 x 7; and per point and spike the
+# site-free factors of both pairs, 2 x 48 (csrc/lift.cu's Spike).
+K9_OPS = (9, 10, 34, 14, 6, 14, 96)
+# K9T's operations a direction beyond the primal: the tangents of the same
+# body on its dual number, each operator as it does it (a product of two
+# duals 3: b' a + a' b; a dual times a scalar 1; a quotient 3: (a' - b' q)
+# / b; a scalar over a dual 3: -(b' q) / b; a reciprocal 3: -a' (r r); an
+# exp 1: a' e; a sum, difference or negation 1; a dual plus a scalar and a
+# comparison 0), in the same places: per site 5; per site and spike 11;
+# ahead 2 x 25 and the reset 6, behind 2 x 12; the synapse pair 2 x 5 or
+# 2 x 13; per point and spike 2 x 107.  The function needs the primal once
+# and these D times: K9T recomputes the primal a direction and the
+# site-free factors a CTA, which the bound does not count.
+K9T_TANGENT_OPS = (5, 11, 56, 24, 10, 26, 214)
 # repairs: more grids than one launch dimension holds, more 1-D batches,
 # and N above one CTA's shared memory (f64 evolve: 8273, replay: 8297)
 REPAIR_GRIDS = (65536, 6, 9, 5)
@@ -667,24 +677,24 @@ def map_eval(pt, torch, dev, smi: str):
     return row
 
 
-def lift_ops(torch, cfg, U) -> int:
-    """K9's operations on the ``(P, n_spikes + 1)`` points ``U``: for each
-    point and spike, its sites ahead of the spike and behind it, as these
-    inputs have them (``K9_OPS_*``)."""
+def lift_ops(torch, cfg, U, counts=K9_OPS) -> int:
+    """The lift's operations on the ``(P, n_spikes + 1)`` points ``U`` by
+    ``counts`` (``K9_OPS``, or ``K9T_TANGENT_OPS`` for one direction's
+    tangents): for each point and spike, its sites ahead of the spike and
+    behind it, as these inputs have them."""
+    site, spike, ahead_, behind_, syn_behind, syn_else, factors = counts
     N = cfg.n_neurons
     x = cfg.half_width - cfg.dx * torch.arange(N, dtype=U.dtype,
                                                device=U.device)
     c = U[:, :1]
-    ops = U.shape[0] * N * K9_OPS_SITE
+    sites = U.shape[0] * N
+    ops = sites * site + U.shape[0] * cfg.n_spikes * factors
     for m in range(1, cfg.n_spikes + 1):
         cu = c * U[:, m:m + 1]
         ahead = int((x - cu > 0).sum())
         behind = int((cu - x > 0).sum())
-        spikes = U.shape[0] * N
-        ops += (spikes * K9_OPS_SPIKE + ahead * K9_OPS_AHEAD
-                + (spikes - ahead) * K9_OPS_BEHIND
-                + behind * K9_OPS_SYN_BEHIND_SPIKE
-                + (spikes - behind) * K9_OPS_SYN_ELSE)
+        ops += (sites * spike + ahead * ahead_ + (sites - ahead) * behind_
+                + behind * syn_behind + (sites - behind) * syn_else)
     return ops
 
 
@@ -752,11 +762,14 @@ def lift_phase(pt, torch, dev, smi: str):
     back (``timed``), beside the plain version, device µs by
     ``torch.profiler``, K9's host µs a call through ``pt.lift`` and through
     its op alone, and the bound from the bytes and this run's
-    operations; then the map through K9 against the map through the plain
-    lift at the evolve's residual bars, and the exact Jacobian through K9T
-    against the one through ``torch.func`` at 1e-12
-    (:func:`lift_through_the_map`).  Returns the two ``kernels`` entries
-    without launches."""
+    operations; K9 equal to the plain lift in every bit at every shape; a
+    one-launch floor beside K9 (a one-element fill, timed as K9 is, a
+    yardstick the port never calls); each kernel's registers and spill
+    bytes (``tools/kernel_resources.py``, none spilled); then the map
+    through K9 against the map through the plain lift at the evolve's
+    residual bars, and the exact Jacobian through K9T against the one
+    through ``torch.func`` at 1e-12 (:func:`lift_through_the_map`).
+    Returns the two ``kernels`` entries without launches."""
     from armadillocudalinearinterpolation_torch.model import emap, lift_cuda
     from armadillocudalinearinterpolation_torch.model.lift import lift_plain
 
@@ -816,8 +829,11 @@ def lift_phase(pt, torch, dev, smi: str):
         ms, ms_b2b = timed(kernel, torch)
         plain_ms, _ = timed(plain, torch, n=5)
         us, per_kernel = device_us(kernel, torch)
-        b_ms, b_by = bound(nbytes(U, params.beta, dU, db, v0, s0, dv0, ds0),
-                           (1 + D) * lift_ops(torch, cfg, U), "float64")
+        b_ms, b_by = bound(
+            nbytes(U, params.beta, dU, db, v0, s0, dv0, ds0),
+            lift_ops(torch, cfg, U) + D * lift_ops(torch, cfg, U,
+                                                   K9T_TANGENT_OPS),
+            "float64")
         k9t[name] = {
             "N": N, "points": P, "directions": D,
             "rel_diff": max(max(rel_diff(a[d], b[d]) for d in range(D))
@@ -828,9 +844,17 @@ def lift_phase(pt, torch, dev, smi: str):
             "ms": ms, "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
             "device_us": us, "device_us_by_kernel": per_kernel,
             "bound_ms": b_ms, "bound_by": b_by}
+    one = torch.zeros(1, device=dev)
+    floor_us, floor_kernels = device_us(lambda: one.fill_(1.0), torch)
+    registers = lift_registers()
     through = lift_through_the_map(pt, torch, dev)
     emit({"phase": "lift", "bars": LIFT_BARS, "k9": k9, "k9t": k9t,
-          "through_the_map": through, "card": smi})
+          "one_launch_floor_device_us": floor_us,
+          "one_launch_floor_kernels": floor_kernels,
+          "registers": registers, "through_the_map": through, "card": smi})
+    spilled = [k for k, r in registers.items() if r["spill_store_bytes"]]
+    require(len(registers) == 9 and not spilled,
+            f"lift: spill stores in {spilled} ({registers})")
     for name, r in through.items():
         require(r["residual_diff"] <= TARGETS[r["dtype"]]["residual"],
                 f"lift {name}: the map through K9 is {r['residual_diff']} "
@@ -842,13 +866,16 @@ def lift_phase(pt, torch, dev, smi: str):
     for name, r in k9.items():
         require(r["rel_diff"] <= LIFT_BARS[r["dtype"]],
                 f"lift {name}: K9 is {r['rel_diff']} from the plain lift")
+        require(r["equal_bits_share"] == 1.0,
+                f"lift {name}: K9 equals the plain lift in "
+                f"{r['equal_bits_share']} of its bits, not all")
     for name, r in k9t.items():
         require(r["rel_diff"] <= LIFT_BARS["tangent"],
                 f"lift {name}: K9T is {r['rel_diff']} from torch.func")
         require(r["primal_equals_k9"], f"lift {name}: K9T's primal differs "
                 "from K9's")
 
-    def entry(kname, cases, head, shape):
+    def entry(kname, cases, head, shape, **extra):
         c = cases[head]
         return {"name": kname, "route": "cuda", "source": LIFT_SRC,
                 "replaces": LIFT_TPU,
@@ -856,9 +883,12 @@ def lift_phase(pt, torch, dev, smi: str):
                 "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": None, "device_us": c["device_us"],
-                "shape": shape, "by_case": cases}
+                "shape": shape, "by_case": cases,
+                "registers": {k: r for k, r in registers.items()
+                              if k.startswith(kname)}, **extra}
     return (entry("lift_kernel", k9, "config3_map",
-                  "config 3's map evaluation: 1 point x N=1024, f32"),
+                  "config 3's map evaluation: 1 point x N=1024, f32",
+                  one_launch_floor_device_us=floor_us),
             entry("lift_tangent_kernel", k9t, "config4_D3",
                   "config 4's exact Jacobian: 1 point x N=4096, D=3, f64"))
 
@@ -2535,6 +2565,22 @@ def replay_registers(kernel: str = "replay_kernel") -> dict:
         if key in name:
             start = name.index(key)
             out[name[start:name.index(">", start) + 1]] = res
+    return out
+
+
+def lift_registers() -> dict:
+    """Registers and spill bytes of K9's six variants (16, 32 or 64 sites
+    a CTA; float or double) and K9T's three, keyed by their template
+    (``lift_kernel<...>``, ``lift_tangent_kernel<...>``), as
+    ``tools/kernel_resources.py`` reads them from one ``nvcc -Xptxas -v``
+    of ``csrc/lift.cu``."""
+    out = {}
+    for name, res in resources_tool().source_resources(
+            ROOT / LIFT_SRC).items():
+        for key in ("lift_kernel<", "lift_tangent_kernel<"):
+            if key in name:
+                start = name.index(key)
+                out[name[start:name.index(">", start) + 1]] = res
     return out
 
 

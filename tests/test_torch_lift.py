@@ -96,7 +96,7 @@ def test_lift_op_matches_jax(dtype, N):
 
 
 @pytest.mark.parametrize("along", ["U", "beta", "both"])
-@pytest.mark.parametrize("D", [1, 3, 4])
+@pytest.mark.parametrize("D", [1, 3, 4, 9])
 def test_lift_tangent_op_matches_jax_jvp(D, along):
     jcfg, pcfg = configs(n_neurons=256, n_real=2)
     U, beta = points()
@@ -134,11 +134,11 @@ def test_plain_tangents_equal_torch_func_over_the_plain_lift():
 
 
 @pytest.mark.parametrize("op", ["lift", "lift_f32", "lift_shared_rate",
-                                "lift_tangent"])
+                                "lift_tangent", "lift_tangent_D9"])
 def test_opcheck(op):
     """torch.library.opcheck of K9's and K9T's ops (their CPU kernels:
-    schema, fake kernel, autograd registration, tracing); one rate
-    expanded over the points is taken as it is."""
+    schema, fake kernel, autograd registration, tracing), K9T at 3 and 9
+    directions; one rate expanded over the points is taken as it is."""
     dtype = torch.float32 if op == "lift_f32" else torch.float64
     _, pcfg = configs(dtype=str(dtype)[6:], n_neurons=256, n_real=2)
     U, beta = (torch.tensor(x, dtype=dtype) for x in points())
@@ -146,9 +146,10 @@ def test_opcheck(op):
         beta = beta[:1].expand(P)
     args = (lift_cuda.config_key(pcfg), U, beta)
     fn = lift_cuda.lift_op
-    if op == "lift_tangent":
+    if op.startswith("lift_tangent"):
         fn = lift_cuda.lift_tangent_op
-        args += tuple(torch.tensor(x) for x in directions(3, "both"))
+        D = 9 if op.endswith("D9") else 3
+        args += tuple(torch.tensor(x) for x in directions(D, "both"))
     result = torch.library.opcheck(fn, args)
     assert set(result.values()) == {"SUCCESS"}, result
 
@@ -166,6 +167,34 @@ def test_ops_refuse_what_the_kernels_do_not_take():
         torch.ops.atorch.lift_tangent(key, U, beta, dU[:, :2], db)
     with pytest.raises(ValueError, match="dbeta must be"):
         torch.ops.atorch.lift_tangent(key, U, beta, dU, db[:1])
+
+
+def test_ops_refuse_more_than_one_launch_holds():
+    """The kernels' grid: K9T's directions on grid.y (at most
+    ``MAX_DIRECTIONS``), the points times their tiles of
+    ``SITES_PER_CTA`` sites on grid.x (at most ``2**31 - 1``, as is N):
+    one direction, one point or one site more is refused on every device
+    (the checks run before any work), and the checks pass at the
+    limits."""
+    _, pcfg = configs(n_neurons=256, n_real=2)
+    key = lift_cuda.config_key(pcfg)
+    U, beta = (torch.tensor(x) for x in points())
+    D = lift_cuda.MAX_DIRECTIONS
+    dU = torch.zeros(D + 1, P, 4, dtype=torch.float64)
+    db = torch.zeros(D + 1, P, dtype=torch.float64)
+    with pytest.raises(ValueError, match="at most 65535"):
+        torch.ops.atorch.lift_tangent(key, U, beta, dU, db)
+    assert lift_cuda.check_tangent_inputs(pcfg, U, beta, dU[:D],
+                                          db[:D]) == D
+    # 16 points of 2**31 - 16 sites are 16 (2**27 - 1) CTAs, the most that
+    # fit; a 17th point, or one site more a point, does not
+    sites = lift_cuda.SITES_PER_CTA
+    wide = pcfg.with_(n_neurons=lift_cuda.MAX_GRID_X + 1 - sites)
+    U17, beta17 = (torch.tensor(x) for x in points(n=17))
+    lift_cuda.check_lift_inputs(wide, U17[:16], beta17[:16])
+    for cfg, n in ((wide, 17), (pcfg.with_(n_neurons=2**31), 1)):
+        with pytest.raises(ValueError, match="more than one launch takes"):
+            lift_cuda.check_lift_inputs(cfg, U17[:n], beta17[:n])
 
 
 def along_route(route, f, U, beta, dU, db):

@@ -1,15 +1,18 @@
 """The lift's kernels on the card (``csrc/lift.cu``, ``model/lift_cuda.py``):
 K9 against the plain lift (``lift_plain``) and K9T against ``torch.func``
-over it, on the same CUDA tensors, at P in {1, 4, 7} points, N in {256,
-1000, 4096, 10240} sites (1000 is no multiple of the block) and D in {1,
-3, 4} directions, f32 and f64; K9T's primal against K9's (bit for bit, the
-same body); a map evaluation launching K9 once and nothing else for its
-lift; an exact Jacobian launching K9T once for all directions; the rate
-read at its stride; and the AD routes through the lift.
+over it, on the same CUDA tensors, at P in {1, 4, 7} points, N in {33,
+256, 1000, 4096, 10240} sites (33 and 1000 are no multiple of a CTA's 16
+sites) and D in {1, 3, 4, 5, 9} directions (one CTA a direction), f32
+and f64; K9 equal to the plain lift in every bit at the shapes of configs
+3 and 4; K9T's primal against K9's (bit for bit, the same body); a map
+evaluation launching K9 once and nothing else for its lift; an exact
+Jacobian launching K9T once for all directions; the rate read at its
+stride; and the AD routes through the lift.
 
 Bars: K9 f64 1e-12 and f32 1e-6 relative (``max |a - b| / max |b|``; the
 plain lift runs the same operations in the same order, so equal bits are
-expected where the two ``exp`` agree); K9T 1e-12 relative a direction.
+expected where the two ``exp`` agree, and are required at the map's
+shapes and points); K9T 1e-12 relative a direction.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX:
@@ -63,7 +66,7 @@ def config(N, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("N", [256, 1000, 4096, 10240])
+@pytest.mark.parametrize("N", [33, 256, 1000, 4096, 10240])
 @pytest.mark.parametrize("P", [1, 4, 7])
 def test_k9_matches_the_plain_lift(card, P, N, dtype):
     cfg = config(N, dtype)
@@ -78,8 +81,8 @@ def test_k9_matches_the_plain_lift(card, P, N, dtype):
     assert rel(s0, want[1]) <= BARS[dtype]
 
 
-@pytest.mark.parametrize("D", [1, 3, 4])
-@pytest.mark.parametrize("N", [256, 1000, 4096, 10240])
+@pytest.mark.parametrize("D", [1, 3, 4, 5, 9])
+@pytest.mark.parametrize("N", [33, 256, 1000, 4096, 10240])
 @pytest.mark.parametrize("P", [1, 4, 7])
 def test_k9t_matches_torch_func_over_the_plain_lift(card, P, N, D):
     cfg = config(N, torch.float64)
@@ -100,6 +103,24 @@ def test_k9t_matches_torch_func_over_the_plain_lift(card, P, N, D):
     for d in range(D):
         assert rel(dv0[d], dv[d]) <= TANGENT_BAR, d
         assert rel(ds0[d], ds[d]) <= TANGENT_BAR, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("N", [1024, 4096], ids=["config3", "config4"])
+def test_k9_equals_the_plain_lift_in_every_bit(card, N, dtype):
+    """At the map's shapes (configs 3 and 4: a point and its three
+    forward-FD neighbours at step 1e-3, one rate for all) K9 runs the
+    plain lift's operations in its order: every bit equal."""
+    cfg = config(N, dtype)
+    z = torch.tensor(GUESS, dtype=dtype, device=card)
+    Z = torch.cat([z[None], z + 1e-3 * torch.eye(3, dtype=dtype,
+                                                 device=card)])
+    U = emap.z_to_u(Z)
+    beta = torch.full((1,), 13.0589, dtype=dtype, device=card)
+    v0, s0 = lift_cuda.lift_op(lift_cuda.config_key(cfg), U, beta.expand(4))
+    want = lift_plain(cfg, beta, U)
+    assert torch.equal(v0, want[0]) and torch.equal(s0, want[1])
 
 
 @pytest.mark.parametrize("rate", ["shared", "column"])
