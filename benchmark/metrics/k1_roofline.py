@@ -1,0 +1,15 @@
+"""``k1_roofline.*``: K1's (the evolve kernel's) share of its roofline
+over the traced window (:func:`benchmark.yardstick.roofline_share`)."""
+
+from benchmark.yardstick import roofline_share
+
+
+def read(ctx):
+    if ctx.trace is None:
+        return None
+    return roofline_share(
+        ctx.trace, "atorch::evolve", lambda n: "evolve_kernel" in n,
+        ctx.config["n_real"], ctx.config["model"]["n_spikes"],
+        ctx.traffic.get("events_per_row",
+                        ctx.config["events_per_row"])["value"],
+        ctx.config["dtype"])
