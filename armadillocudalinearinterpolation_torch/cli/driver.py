@@ -61,7 +61,7 @@ from ..solvers.staged import (FROZEN_MODES, newton_solve_frozen,
                               newton_solve_staged)
 from ..utils.checkpoint import ContinuationCheckpoint, ContinuationStep
 from ..utils.debug import dump_map_stages
-from ..utils.profiling import trace
+from ..utils.profiling import span, trace
 
 WALKERS = ("arclength", "track_fold", "track_boundary", "enumerate_branches")
 
@@ -172,7 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dump every map stage to this directory (.npy)")
     p.add_argument("--profile", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the run to "
-                        "this directory (trace.json)")
+                        "this directory (trace.json): the program's spans "
+                        "(cli.*, solvers.*, map.*) around its ops and the "
+                        "card's kernels, on one timeline")
     p.add_argument("--stability", action="store_true",
                    help="eigenvalue analysis at each converged point")
     # pseudo-arclength mode (beyond the reference: rounds the folds the
@@ -267,7 +269,8 @@ def main(argv=None, *, draw: Optional[Callable] = None,
     :func:`step_draws`, and ``noise`` (an ``(R, N)`` array) the walkers'
     noise (the parity tests pass the JAX package's draws and noise).
     """
-    args = build_parser().parse_args(argv)
+    with span("cli.setup"):
+        args = build_parser().parse_args(argv)
     if not args.cpu and not torch.cuda.is_available():
         print("error: no CUDA device is available; the CLI runs on the "
               "card (pass --cpu to run on the CPU)", file=sys.stderr)
@@ -331,168 +334,172 @@ def _error(msg: str) -> int:
 
 def _run(args, draw: Optional[Callable] = None, noise=None,
          sharded: bool = False) -> int:
-    if args.max_events is not None and args.max_events <= 0:
-        raise SystemExit(f"--max-events must be positive, "
-                         f"got {args.max_events}")
-    if args.staged and args.dtype != "float64":
-        return _error("error: --staged solves in the accurate dtype; pass "
-                      "--dtype float64")
-    walker = next((f for f in WALKERS if getattr(args, f)), None)
-    if args.dtype != "float64" and (
-            args.fd_mode == "exact" or args.stage2_fd == "exact"
-            or args.track_fold):
-        what = ("--track-fold" if args.track_fold and args.fd_mode != "exact"
-                else "exact Jacobians")
-        return _error(f"error: {what} need the fp64 tangent replay; pass "
-                      "--dtype float64")
-    if args.cpu and args.evolve_backend == "cuda":
-        return _error("error: --evolve-backend cuda runs the kernel on the "
-                      "card; drop --cpu (or use auto or torch)")
-    frozen = args.fd_mode in FROZEN_MODES
-    direct = args.evolve_backend in ("cuda", "torch")
-    frozen_solve = (args.stage2_fd in FROZEN_MODES if args.staged
-                    else frozen)
-    if frozen_solve and direct:
-        # the frozen solver runs the fp64 replay unconditionally, so an
-        # explicit direct backend would be silently ignored and the sweep
-        # would converge on a residual it never evaluated
-        return _error(
-            "error: the frozen modes solve on the fp64 replay map; they "
-            f"cannot honor --evolve-backend {args.evolve_backend}. Drop "
-            "the backend flag (or use a forward/central mode with it).")
+    with span("cli.setup"):
+        if args.max_events is not None and args.max_events <= 0:
+            raise SystemExit(f"--max-events must be positive, "
+                             f"got {args.max_events}")
+        if args.staged and args.dtype != "float64":
+            return _error("error: --staged solves in the accurate dtype; "
+                          "pass --dtype float64")
+        walker = next((f for f in WALKERS if getattr(args, f)), None)
+        if args.dtype != "float64" and (
+                args.fd_mode == "exact" or args.stage2_fd == "exact"
+                or args.track_fold):
+            what = ("--track-fold" if args.track_fold
+                    and args.fd_mode != "exact" else "exact Jacobians")
+            return _error(f"error: {what} need the fp64 tangent replay; "
+                          "pass --dtype float64")
+        if args.cpu and args.evolve_backend == "cuda":
+            return _error("error: --evolve-backend cuda runs the kernel on "
+                          "the card; drop --cpu (or use auto or torch)")
+        frozen = args.fd_mode in FROZEN_MODES
+        direct = args.evolve_backend in ("cuda", "torch")
+        frozen_solve = (args.stage2_fd in FROZEN_MODES if args.staged
+                        else frozen)
+        if frozen_solve and direct:
+            # the frozen solver runs the fp64 replay unconditionally, so an
+            # explicit direct backend would be silently ignored and the sweep
+            # would converge on a residual it never evaluated
+            return _error(
+                "error: the frozen modes solve on the fp64 replay map; they "
+                f"cannot honor --evolve-backend {args.evolve_backend}. Drop "
+                "the backend flag (or use a forward/central mode with it).")
 
-    dev = torch.device("cpu" if args.cpu else "cuda")
-    cfg = ModelConfig(n_neurons=args.neurons, n_real=args.realisations,
-                      n_spikes=args.spikes, t_horizon=args.horizon,
-                      evolve_window=args.evolve_window, dtype=args.dtype,
-                      **({"max_events": args.max_events}
-                         if args.max_events is not None else {}),
-                      **({"root_tol": args.root_tol}
-                         if args.root_tol is not None else {}))
-    ncfg = NewtonConfig(tolerance=args.tol, max_iterations=args.max_iter,
-                        fd_epsilon=args.fd_eps, damping=args.damping,
-                        print_output=not args.quiet, fd_mode=args.fd_mode)
-    if len(args.guess) != args.spikes:
-        return _error(f"error: --guess needs {args.spikes} values")
-    group = None
-    if sharded:
-        from ..parallel import ShardGroup
-        group = ShardGroup(cfg.n_real)
-    # rank 0 alone writes checkpoints and dumps
-    writer = group is None or group.rank == 0
-    Z = torch.tensor(args.guess, dtype=cfg.torch_dtype, device=dev)
-    beta = args.beta
-    if draw is None:
-        draw = step_draws(cfg, args.seed, dev)
-    # the walkers' one noise for the whole walk
-    if walker and noise is None:
-        noise = sample_noise(cfg, torch.Generator(device=dev).manual_seed(
-            step_seed(args.seed, 0)), device=dev)
-    elif walker:
-        noise = torch.as_tensor(np.asarray(noise), dtype=cfg.torch_dtype,
-                                device=dev)
+        dev = torch.device("cpu" if args.cpu else "cuda")
+        cfg = ModelConfig(n_neurons=args.neurons, n_real=args.realisations,
+                          n_spikes=args.spikes, t_horizon=args.horizon,
+                          evolve_window=args.evolve_window, dtype=args.dtype,
+                          **({"max_events": args.max_events}
+                             if args.max_events is not None else {}),
+                          **({"root_tol": args.root_tol}
+                             if args.root_tol is not None else {}))
+        ncfg = NewtonConfig(tolerance=args.tol, max_iterations=args.max_iter,
+                            fd_epsilon=args.fd_eps, damping=args.damping,
+                            print_output=not args.quiet, fd_mode=args.fd_mode)
+        if len(args.guess) != args.spikes:
+            return _error(f"error: --guess needs {args.spikes} values")
+        group = None
+        if sharded:
+            from ..parallel import ShardGroup
+            group = ShardGroup(cfg.n_real)
+        # rank 0 alone writes checkpoints and dumps
+        writer = group is None or group.rank == 0
+        Z = torch.tensor(args.guess, dtype=cfg.torch_dtype, device=dev)
+        beta = args.beta
+        if draw is None:
+            draw = step_draws(cfg, args.seed, dev)
+        # the walkers' one noise for the whole walk
+        if walker and noise is None:
+            noise = sample_noise(cfg, torch.Generator(device=dev).manual_seed(
+                step_seed(args.seed, 0)), device=dev)
+        elif walker:
+            noise = torch.as_tensor(np.asarray(noise), dtype=cfg.torch_dtype,
+                                    device=dev)
 
-    ckpt = ContinuationCheckpoint(args.checkpoint) if args.checkpoint else None
-    start = 0
-    # Secant predictor state (beyond the reference's plain warm start,
-    # Driver.cu:107-109): the pair is strictly TWO CONSECUTIVE CONVERGED
-    # SOLUTIONS, never the caller's initial guess (a guess->solution
-    # "secant" is a Newton correction, not a branch tangent: at N=512 R=4
-    # f64 it extrapolated step 1 into the coexisting fast family's basin),
-    # and a failed step resets it.  When the pair is live, Z itself is the
-    # newer converged solution, so one "two steps back" value suffices.
-    Z_conv_prev = None   # converged solution two steps back
-    Z_is_conv = False    # current Z is a converged solution (not a guess)
-    if args.resume:
-        if ckpt is None:
-            return _error("error: --resume requires --checkpoint")
-        done = ckpt.load_all()
-        if done and args.arclength:
-            # restart FROM the last accepted point: its 'beta' field holds
-            # the walked parameter (the walker's predictor moves it), and
-            # the walk keeps its one noise
-            last = done[-1]
-            start = last.index + 1
-            beta = last.beta
-            Z = torch.tensor(last.solution, dtype=cfg.torch_dtype,
-                             device=dev)
-            print(f"resuming arclength walk at step {start} "
-                  f"(param={beta:.4f})")
-        elif done:
-            last = done[-1]
-            start = last.index + 1
-            beta = last.beta + args.beta_step
-            Z = torch.tensor(last.solution, dtype=cfg.torch_dtype,
-                             device=dev)
-            # the predictor's state after the last step, as the
-            # uninterrupted loop left it
-            Z_is_conv = bool(last.converged)
-            if (Z_is_conv and len(done) > 1 and done[-2].converged
-                    and done[-2].index == last.index - 1):
-                Z_conv_prev = torch.tensor(done[-2].solution,
-                                           dtype=cfg.torch_dtype, device=dev)
-            print(f"resuming at step {start} (beta={beta:.4f})")
+        ckpt = (ContinuationCheckpoint(args.checkpoint) if args.checkpoint
+                else None)
+        start = 0
+        # Secant predictor state (beyond the reference's plain warm start,
+        # Driver.cu:107-109): the pair is strictly TWO CONSECUTIVE CONVERGED
+        # SOLUTIONS, never the caller's initial guess (a guess->solution
+        # "secant" is a Newton correction, not a branch tangent: at N=512 R=4
+        # f64 it extrapolated step 1 into the coexisting fast family's basin),
+        # and a failed step resets it.  When the pair is live, Z itself is the
+        # newer converged solution, so one "two steps back" value suffices.
+        Z_conv_prev = None   # converged solution two steps back
+        Z_is_conv = False    # current Z is a converged solution (not a guess)
+        if args.resume:
+            if ckpt is None:
+                return _error("error: --resume requires --checkpoint")
+            done = ckpt.load_all()
+            if done and args.arclength:
+                # restart FROM the last accepted point: its 'beta' field holds
+                # the walked parameter (the walker's predictor moves it), and
+                # the walk keeps its one noise
+                last = done[-1]
+                start = last.index + 1
+                beta = last.beta
+                Z = torch.tensor(last.solution, dtype=cfg.torch_dtype,
+                                 device=dev)
+                print(f"resuming arclength walk at step {start} "
+                      f"(param={beta:.4f})")
+            elif done:
+                last = done[-1]
+                start = last.index + 1
+                beta = last.beta + args.beta_step
+                Z = torch.tensor(last.solution, dtype=cfg.torch_dtype,
+                                 device=dev)
+                # the predictor's state after the last step, as the
+                # uninterrupted loop left it
+                Z_is_conv = bool(last.converged)
+                if (Z_is_conv and len(done) > 1 and done[-2].converged
+                        and done[-2].index == last.index - 1):
+                    Z_conv_prev = torch.tensor(
+                        done[-2].solution, dtype=cfg.torch_dtype, device=dev)
+                print(f"resuming at step {start} (beta={beta:.4f})")
 
-    if args.staged:
-        # the staged recipe carries its own stage budgets/damping/FD setup
-        # (solvers/staged.py); flag knobs that would otherwise silently
-        # not take effect
-        parser = build_parser()
-        ignored = [f for f in ("max_iter", "fd_eps", "fd_mode", "damping")
-                   if getattr(args, f) != parser.get_default(f)]
-        if ignored:
-            flags = ", ".join("--" + f.replace("_", "-") for f in ignored)
-            print(f"warning: {flags} ignored with --staged (the staged "
-                  "recipe uses its own stage configs; see "
-                  "solvers/staged.py)", file=sys.stderr)
-        if walker:
-            # the walkers dispatch before the staged solve and use their
-            # own correctors
-            print(f"warning: --staged is ignored with "
-                  f"--{walker.replace('_', '-')} (walkers use their own "
-                  "correctors; pass --fd-mode frozen for the fused "
-                  "frozen-outcome corrector on the replay map)",
+        if args.staged:
+            # the staged recipe carries its own stage budgets/damping/FD setup
+            # (solvers/staged.py); flag knobs that would otherwise silently
+            # not take effect
+            parser = build_parser()
+            ignored = [f for f in ("max_iter", "fd_eps", "fd_mode", "damping")
+                       if getattr(args, f) != parser.get_default(f)]
+            if ignored:
+                flags = ", ".join("--" + f.replace("_", "-") for f in ignored)
+                print(f"warning: {flags} ignored with --staged (the staged "
+                      "recipe uses its own stage configs; see "
+                      "solvers/staged.py)", file=sys.stderr)
+            if walker:
+                # the walkers dispatch before the staged solve and use their
+                # own correctors
+                print(f"warning: --staged is ignored with "
+                      f"--{walker.replace('_', '-')} (walkers use their own "
+                      "correctors; pass --fd-mode frozen for the fused "
+                      "frozen-outcome corrector on the replay map)",
+                      file=sys.stderr)
+        elif args.stage2_fd is not None:
+            print("warning: --stage2-fd only takes effect with --staged",
                   file=sys.stderr)
-    elif args.stage2_fd is not None:
-        print("warning: --stage2-fd only takes effect with --staged",
-              file=sys.stderr)
-    if (not args.staged and args.fd_mode in ("forward", "central")
-            and args.fd_eps >= cfg.dx):
-        # (the frozen modes are exempt: they difference the frozen-outcome
-        # smooth piece, with no seeding staircase in range, and their
-        # radius is clamped)
-        # The map's spike-index seeding quantises with the grid, so an FD
-        # stencil wider than one cell straddles O(dx) staircase steps and
-        # can poison the Jacobian (observed: divergence at N=1024 with the
-        # reference's default eps=1e-2).  The reference never hits this
-        # because its grid (N=512) is coarser than its epsilon.
-        print(f"warning: --fd-eps {args.fd_eps:g} >= grid spacing "
-              f"dx={cfg.dx:.2e}; the FD Jacobian may straddle the map's "
-              "seeding staircase. Consider --fd-eps below dx/4 or "
-              "--fd-mode central.", file=sys.stderr)
+        if (not args.staged and args.fd_mode in ("forward", "central")
+                and args.fd_eps >= cfg.dx):
+            # (the frozen modes are exempt: they difference the frozen-outcome
+            # smooth piece, with no seeding staircase in range, and their
+            # radius is clamped)
+            # The map's spike-index seeding quantises with the grid, so an FD
+            # stencil wider than one cell straddles O(dx) staircase steps and
+            # can poison the Jacobian (observed: divergence at N=1024 with the
+            # reference's default eps=1e-2).  The reference never hits this
+            # because its grid (N=512) is coarser than its epsilon.
+            print(f"warning: --fd-eps {args.fd_eps:g} >= grid spacing "
+                  f"dx={cfg.dx:.2e}; the FD Jacobian may straddle the map's "
+                  "seeding staircase. Consider --fd-eps below dx/4 or "
+                  "--fd-mode central.", file=sys.stderr)
 
-    # Smoke test, as in Driver.cu:58-59.  Under --staged and the frozen
-    # modes the accurate backend is the replay ("auto" resolves there in
-    # the library), so probe THAT.
-    smoke_backend = args.evolve_backend
-    if (args.staged or frozen) and smoke_backend == "auto":
-        smoke_backend = "replay"
-    if args.arclength and args.arc_param == "sigma":
-        # on a sigma walk the resumed value in `beta` IS the sigma; the
-        # held mean rate stays --beta
-        params = MapParams.create(args.beta, beta if start > 0
-                                  else args.sigma, dtype=args.dtype,
-                                  device=dev)
-    else:
-        params = MapParams.create(beta, args.sigma, dtype=args.dtype,
-                                  device=dev)
-    t0 = time.perf_counter()
-    f0 = event_driven_map(cfg, params,
-                          beta_from_noise(cfg, params, noise) if walker
-                          else draw(start, params), Z,
-                          evolve_backend=smoke_backend, group=group)
-    print(f"ComputeF smoke test: |f| = {float(torch.linalg.vector_norm(f0)):.6e} "
-          f"({time.perf_counter() - t0:.2f}s incl. kernel build)")
+        # Smoke test, as in Driver.cu:58-59.  Under --staged and the frozen
+        # modes the accurate backend is the replay ("auto" resolves there in
+        # the library), so probe THAT.
+        smoke_backend = args.evolve_backend
+        if (args.staged or frozen) and smoke_backend == "auto":
+            smoke_backend = "replay"
+        if args.arclength and args.arc_param == "sigma":
+            # on a sigma walk the resumed value in `beta` IS the sigma; the
+            # held mean rate stays --beta
+            params = MapParams.create(args.beta, beta if start > 0
+                                      else args.sigma, dtype=args.dtype,
+                                      device=dev)
+        else:
+            params = MapParams.create(beta, args.sigma, dtype=args.dtype,
+                                      device=dev)
+    with span("cli.smoke"):
+        t0 = time.perf_counter()
+        f0 = event_driven_map(cfg, params,
+                              beta_from_noise(cfg, params, noise) if walker
+                              else draw(start, params), Z,
+                              evolve_backend=smoke_backend, group=group)
+        print("ComputeF smoke test: |f| = "
+              f"{float(torch.linalg.vector_norm(f0)):.6e} "
+              f"({time.perf_counter() - t0:.2f}s incl. kernel build)")
 
     if args.debug_dump and writer:
         dump_map_stages(cfg, params, draw(start, params), Z, args.debug_dump)
@@ -554,70 +561,81 @@ def _run(args, draw: Optional[Callable] = None, noise=None,
     # follows the reference and warm-starts from whatever the failed solve
     # returned, and reseeds)
     for i in range(start, start + args.steps):
-        params = MapParams.create(beta, args.sigma, dtype=args.dtype,
-                                  device=dev)
-        b = draw(i, params)          # one draw serves every solve of step i
-        predicted = args.predict and Z_conv_prev is not None
-        guess = Z + (Z - Z_conv_prev) if predicted else Z
-        res = solve(params, b, guess)
-        if predicted and predicted_retry_needed(res):
-            how = ("diverged" if not np.isfinite(_host(res.solution)).all()
-                   else "did not converge")
-            print(f"step {i}: predicted guess {how}; retrying with the "
-                  "plain warm start")
-            res = solve(params, b, Z)
-        sol = _host(res.solution)
-        ok = bool(res.converged)
-        print(f"step {i}: beta={beta:.4f} converged={ok} "
-              f"iters={int(res.iterations)} |r|={float(res.residual_norm):.3e} "
-              f"Z={np.array2string(sol, precision=5)}")
-        if not np.isfinite(sol).all():
-            # The branch has ended (no accepted realisations / diverged
-            # solve).  Stop cleanly; the checkpoint holds every prior step.
-            print(f"step {i}: solution is non-finite — stopping the sweep "
-                  f"(branch end or solver failure at beta={beta:.4f})")
-            return 1
+        with span("cli.step"):
+            params = MapParams.create(beta, args.sigma, dtype=args.dtype,
+                                      device=dev)
+            b = draw(i, params)      # one draw serves every solve of step i
+            with span("cli.predict"):
+                predicted = args.predict and Z_conv_prev is not None
+                guess = Z + (Z - Z_conv_prev) if predicted else Z
+            res = solve(params, b, guess)
+            with span("cli.predict"):
+                retry = predicted and predicted_retry_needed(res)
+            if retry:
+                how = ("diverged" if not np.isfinite(_host(res.solution)).all()
+                       else "did not converge")
+                print(f"step {i}: predicted guess {how}; retrying with the "
+                      "plain warm start")
+                res = solve(params, b, Z)
+            sol = _host(res.solution)
+            ok = bool(res.converged)
+            print(f"step {i}: beta={beta:.4f} converged={ok} "
+                  f"iters={int(res.iterations)} "
+                  f"|r|={float(res.residual_norm):.3e} "
+                  f"Z={np.array2string(sol, precision=5)}")
+            if not np.isfinite(sol).all():
+                # The branch has ended (no accepted realisations / diverged
+                # solve).  Stop cleanly; the checkpoint holds every prior step.
+                print(f"step {i}: solution is non-finite — stopping the "
+                      f"sweep (branch end or solver failure at "
+                      f"beta={beta:.4f})")
+                return 1
 
-        n_unstable = None
-        eigenvalues = None
-        if args.stability:
-            # A 0-iteration GENERIC solve exports the identity placeholder,
-            # not a real Jacobian: fall back to finite differences then.
-            # The staged and frozen solvers always export a real one, so
-            # theirs is used unconditionally (the FD fallback at --fd-eps
-            # would sit in the seeding-staircase regime they avoid).
-            exported_real = (int(res.iterations) > 0 or args.staged
-                             or frozen)
-            ev = compute_eigenvalues(
-                make_residual_fn(cfg, params, 0, device=dev, beta=b,
-                                 evolve_backend=args.evolve_backend,
-                                 group=group),
-                res.solution, ProblemType.EQUATION_FREE,
-                jacobian=res.jacobian if exported_real else None,
-                epsilon=args.fd_eps)
-            eigenvalues = np.asarray(ev)
-            n_unstable = int(count_unstable(ev, ProblemType.EQUATION_FREE))
-            verdict = "unstable" if n_unstable else "stable"
-            print(f"  eigenvalues: {np.array2string(eigenvalues, precision=4)}"
-                  f" -> {verdict} ({n_unstable} unstable)")
+            n_unstable = None
+            eigenvalues = None
+            if args.stability:
+                with span("cli.stability"):
+                    # A 0-iteration GENERIC solve exports the identity
+                    # placeholder, not a real Jacobian: fall back to finite
+                    # differences then.  The staged and frozen solvers
+                    # always export a real one, so theirs is used
+                    # unconditionally (the FD fallback at --fd-eps would sit
+                    # in the seeding-staircase regime they avoid).
+                    exported_real = (int(res.iterations) > 0 or args.staged
+                                     or frozen)
+                    ev = compute_eigenvalues(
+                        make_residual_fn(cfg, params, 0, device=dev, beta=b,
+                                         evolve_backend=args.evolve_backend,
+                                         group=group),
+                        res.solution, ProblemType.EQUATION_FREE,
+                        jacobian=res.jacobian if exported_real else None,
+                        epsilon=args.fd_eps)
+                    eigenvalues = np.asarray(ev)
+                    n_unstable = int(count_unstable(ev,
+                                                    ProblemType.EQUATION_FREE))
+                    verdict = "unstable" if n_unstable else "stable"
+                    print("  eigenvalues: "
+                          f"{np.array2string(eigenvalues, precision=4)}"
+                          f" -> {verdict} ({n_unstable} unstable)")
 
-        if ckpt is not None and writer:
-            ckpt.save(ContinuationStep(
-                index=i, beta=beta, solution=sol,
-                residual_norm=float(res.residual_norm), converged=ok,
-                n_unstable=n_unstable, eigenvalues=eigenvalues))
+            if ckpt is not None and writer:
+                with span("cli.checkpoint"):
+                    ckpt.save(ContinuationStep(
+                        index=i, beta=beta, solution=sol,
+                        residual_norm=float(res.residual_norm), converged=ok,
+                        n_unstable=n_unstable, eigenvalues=eigenvalues))
 
-        # Prepare the next step (Driver.cu:107-109).  Z updates
-        # unconditionally like the reference loop; the predictor pair only
-        # extends across consecutive converged steps.
-        beta += args.beta_step
-        if ok:
-            Z_conv_prev = Z if Z_is_conv else None
-            Z_is_conv = True
-        else:
-            Z_conv_prev = None
-            Z_is_conv = False
-        Z = res.solution
+            # Prepare the next step (Driver.cu:107-109).  Z updates
+            # unconditionally like the reference loop; the predictor pair only
+            # extends across consecutive converged steps.
+            beta += args.beta_step
+            if ok:
+                Z_conv_prev = Z if Z_is_conv else None
+                Z_is_conv = True
+            else:
+                Z_conv_prev = None
+                Z_is_conv = False
+            Z = res.solution
 
     return 0
 
@@ -658,35 +676,40 @@ def run_arclength(args, cfg, ncfg, noise, Z, beta, ckpt, start,
         walk_beta0, walk_sigma = beta, args.sigma
 
     def on_step(i, step):
-        b = float(step.y[-1])
-        sol = _host(step.y[:-1])
-        # --quiet (uniform across walkers): no per-step lines; the summary,
-        # the checkpoint and the stability analysis still run
-        if not args.quiet:
-            print(f"arc step {start + i}: {args.arc_param}={b:.4f} "
-                  f"iters={int(step.iterations)} "
-                  f"|r|={float(step.residual_norm):.3e} "
-                  f"Z={np.array2string(sol, precision=5)}", flush=True)
-        n_unstable = None
-        eigenvalues = None
-        if args.stability:
-            ev = compute_eigenvalues(
-                make_residual_fn(cfg, _walk_params(args, b, noise.device),
-                                 0, device=noise.device, noise=noise,
-                                 evolve_backend=args.evolve_backend,
-                                 group=group),
-                step.y[:-1], ProblemType.EQUATION_FREE, epsilon=args.fd_eps)
-            eigenvalues = np.asarray(ev)
-            n_unstable = int(count_unstable(ev, ProblemType.EQUATION_FREE))
+        with span("cli.step"):
+            b = float(step.y[-1])
+            sol = _host(step.y[:-1])
+            # --quiet (uniform across walkers): no per-step lines; the summary,
+            # the checkpoint and the stability analysis still run
             if not args.quiet:
-                print(f"  -> {'unstable' if n_unstable else 'stable'} "
-                      f"({n_unstable} unstable)")
-        if ckpt is not None and (group is None or group.rank == 0):
-            ckpt.save(ContinuationStep(
-                index=start + i, beta=b, solution=sol,
-                residual_norm=float(step.residual_norm),
-                converged=bool(step.converged), n_unstable=n_unstable,
-                eigenvalues=eigenvalues))
+                print(f"arc step {start + i}: {args.arc_param}={b:.4f} "
+                      f"iters={int(step.iterations)} "
+                      f"|r|={float(step.residual_norm):.3e} "
+                      f"Z={np.array2string(sol, precision=5)}", flush=True)
+            n_unstable = None
+            eigenvalues = None
+            if args.stability:
+                with span("cli.stability"):
+                    ev = compute_eigenvalues(
+                        make_residual_fn(
+                            cfg, _walk_params(args, b, noise.device), 0,
+                            device=noise.device, noise=noise,
+                            evolve_backend=args.evolve_backend, group=group),
+                        step.y[:-1], ProblemType.EQUATION_FREE,
+                        epsilon=args.fd_eps)
+                    eigenvalues = np.asarray(ev)
+                    n_unstable = int(count_unstable(ev,
+                                                    ProblemType.EQUATION_FREE))
+                    if not args.quiet:
+                        print(f"  -> {'unstable' if n_unstable else 'stable'} "
+                              f"({n_unstable} unstable)")
+            if ckpt is not None and (group is None or group.rank == 0):
+                with span("cli.checkpoint"):
+                    ckpt.save(ContinuationStep(
+                        index=start + i, beta=b, solution=sol,
+                        residual_norm=float(step.residual_norm),
+                        converged=bool(step.converged), n_unstable=n_unstable,
+                        eigenvalues=eigenvalues))
 
     steps = continue_branch(
         cfg, noise, Z, walk_beta0, sigma=walk_sigma, param=args.arc_param,

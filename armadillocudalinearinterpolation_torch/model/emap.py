@@ -51,6 +51,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 from ..config import ModelConfig, MapParams
+from ..utils.profiling import span, spanned
 from .autodiff import (differentiable_evolve, direct_schedule,
                        outcome_error, outcome_mismatch)
 from .evolve import EvolveResult
@@ -204,6 +205,7 @@ def assemble_residual(cfg: ModelConfig, U: torch.Tensor,
     return -c * U[..., 1:] - u_mean + c * cfg.t_horizon
 
 
+@spanned("map.eval")
 def event_driven_map(cfg: ModelConfig, params: MapParams,
                      beta: torch.Tensor, Z: torch.Tensor, *,
                      with_diagnostics: bool = False,
@@ -264,6 +266,7 @@ def event_driven_map(cfg: ModelConfig, params: MapParams,
     return f, diag
 
 
+@spanned("map.discovery")
 def compute_discrete_outcome(cfg: ModelConfig, params: MapParams,
                              beta: torch.Tensor, Z: torch.Tensor, group=None):
     """The map's discrete outcome at one point ``Z`` (``(n_spikes,)``):
@@ -282,6 +285,7 @@ def compute_discrete_outcome(cfg: ModelConfig, params: MapParams,
     return sched, n_ev, init_ind[0]
 
 
+@spanned("map.eval")
 def frozen_schedule_map_batched(cfg: ModelConfig, params: MapParams,
                                 beta: torch.Tensor, Zs: torch.Tensor,
                                 sched: torch.Tensor, n_sched: torch.Tensor,
@@ -373,8 +377,9 @@ def lift_tangents(cfg: ModelConfig, params: MapParams, Zs: torch.Tensor,
     pb = params.beta.to(dtype=Zs.dtype, device=Zs.device).reshape(
         -1).expand(P)
     U, dU = z_to_u(Zs), z_to_u(dZ)
-    v0, s0, dv0, ds0 = lift_tangent(cfg, U, pb, dU,
-                                    dpb.reshape(dpb.shape[0], P))
+    with span("map.lift"):
+        v0, s0, dv0, ds0 = lift_tangent(cfg, U, pb, dU,
+                                        dpb.reshape(dpb.shape[0], P))
     return U, dU, v0, s0, dv0, ds0
 
 
@@ -482,20 +487,23 @@ def map_jvp(cfg: ModelConfig, params: MapParams, noise: torch.Tensor,
         n_bad = outcome_mismatch(res, res_t).sum(dtype=f64)
 
     # the restriction's tangent: indices and accept take none
-    h, count = _masked_sums(cfg, res, P)
-    times = (res.last_time, res.crossed_time)
-    sums = h(*times)
-    dsums = torch.func.vmap(
-        lambda a, b: torch.func.jvp(h, times, (a, b))[1])(d_last, d_crossed)
-    u_mean, count, dsums, n_bad = reduce_mean(sums, count, group, dsums,
-                                              n_bad)
+    with span("map.jvp"):
+        h, count = _masked_sums(cfg, res, P)
+        times = (res.last_time, res.crossed_time)
+        sums = h(*times)
+        dsums = torch.func.vmap(lambda a, b: torch.func.jvp(
+            h, times, (a, b))[1])(d_last, d_crossed)
+    with span("map.mean"):
+        u_mean, count, dsums, n_bad = reduce_mean(sums, count, group,
+                                                  dsums, n_bad)
     if float(n_bad):
         raise outcome_error(int(n_bad))
-    du_mean = dsums / count[..., None]
-    f = assemble_residual(cfg, U, u_mean)
-    jv = torch.func.vmap(lambda a, b: torch.func.jvp(
-        lambda U_, u_: assemble_residual(cfg, U_, u_), (U, u_mean),
-        (a, b))[1])(dU, du_mean)
+    with span("map.jvp"):
+        du_mean = dsums / count[..., None]
+        f = assemble_residual(cfg, U, u_mean)
+        jv = torch.func.vmap(lambda a, b: torch.func.jvp(
+            lambda U_, u_: assemble_residual(cfg, U_, u_), (U, u_mean),
+            (a, b))[1])(dU, du_mean)
     return f, jv
 
 
@@ -523,6 +531,7 @@ class ResidualFn:
                                 evolve_backend=self.evolve_backend,
                                 group=self.group)
 
+    @spanned("map.eval")
     def value_and_jacobian(self, Z: torch.Tensor,
                            param: Optional[str] = None):
         """``(F(Z), J)`` at one point ``(n,)``: ``J`` is ``(n, n)``, or

@@ -15,9 +15,11 @@ shapes, so the op traces under fake tensors.  The launch itself is a
 float32 and float64 tensors on a CUDA device.  It launches on the current
 stream, does not synchronise, and raises on any input the kernel does not
 take; there is no fallback.  ``LAUNCHES`` counts its launches (read it as
-``evolve_cuda.LAUNCHES``).  ``record_schedule = E > 0`` adds the kernel's
-firing-order log, as the plain version returns it, and ``event_times`` its
-time log.
+``evolve_cuda.LAUNCHES``); while a profiler records, each launch also
+adds its rows, events and fallback events to
+:data:`..utils.profiling.K1_COUNTERS`.  ``record_schedule = E > 0`` adds
+the kernel's firing-order log, as the plain version returns it, and
+``event_times`` its time log.
 
 A row whose state does not fit one CTA's shared memory
 (:func:`row_fits_shared`) runs in a scratch of device memory that the
@@ -35,6 +37,7 @@ import torch
 
 from .. import _build
 from ..config import ModelConfig
+from ..utils import profiling
 from .evolve import (EvolveResult, beta_rows, check_event_times,
                      check_evolve_inputs)
 from .evolve_batched import evolve_ensemble_batched, window_pad
@@ -232,6 +235,12 @@ def evolve_op(cfg: str, v0: torch.Tensor, s0: torch.Tensor,
     scratch = (None if row_fits_shared(N, M, dt_, "evolve",
                                        shared_optin_bytes(dev)) else
                torch.empty(P * R * row_elems(N), dtype=dt_, device=dev))
+    # while a profiler records, a windowed launch always stores its rows'
+    # fallback counts, into a scratch if the caller did not ask for them
+    counted = profiling.recording()
+    fb = out[8] if fallbacks else None
+    if counted and W and fb is None:
+        fb = torch.empty(P * R, dtype=torch.int32, device=dev)
 
     lib = _build.load_library()
     with torch.cuda.device(dev):
@@ -243,7 +252,7 @@ def evolve_op(cfg: str, v0: torch.Tensor, s0: torch.Tensor,
             out[5].data_ptr(), out[6].data_ptr() if E else None,
             out[7].data_ptr() if event_times else None,
             None if scratch is None else scratch.data_ptr(),
-            out[8].data_ptr() if fallbacks else None,
+            None if fb is None else fb.data_ptr(),
             P, R, N, M, E, W, window_pad(W) if W else 0, int(per_row),
             default_threads(N, P * R, torch.cuda.get_device_properties(
                 dev).multi_processor_count, dt_),
@@ -252,6 +261,8 @@ def evolve_op(cfg: str, v0: torch.Tensor, s0: torch.Tensor,
             stream)
     _build.check(lib, code, "evolve kernel launch")
     LAUNCHES += 1
+    if counted:
+        profiling.K1_COUNTERS.count(out[5], fb if W else None)
     return out
 
 

@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ..config import ModelConfig, MapParams
+from ..utils.profiling import spanned
 from .evolve_cuda import config_key
 
 
@@ -52,6 +53,7 @@ def _lift_synapse_term(x, c, u, beta, a, b):
     return ahead, behind
 
 
+@spanned("map.lift")
 def lift(cfg: ModelConfig, params: MapParams, U: torch.Tensor
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closed-form lift of ``U = (c, u_1..u_M)`` to ``(v, s)``: one launch

@@ -10,9 +10,11 @@ from __future__ import annotations
 import torch
 
 from ..config import ModelConfig
+from ..utils.profiling import spanned
 from .evolve import EvolveResult
 
 
+@spanned("map.restrict")
 def restrict_positions(cfg: ModelConfig, res: EvolveResult) -> torch.Tensor:
     """Interpolated crossing position ``x(T)`` per (row, spike):
 
@@ -57,6 +59,7 @@ def reduce_mean(sums: torch.Tensor, count: torch.Tensor, group=None,
     return (sums / count[..., None], count, *extra)
 
 
+@spanned("map.mean")
 def masked_ensemble_mean(positions: torch.Tensor, accept: torch.Tensor,
                          group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Monte-Carlo mean over accepted realisations.

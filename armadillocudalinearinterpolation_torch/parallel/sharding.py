@@ -43,6 +43,7 @@ from torch.multiprocessing.spawn import ProcessException
 from ..config import MapParams, ModelConfig, NewtonConfig
 from ..model.emap import event_driven_map, make_residual_fn
 from ..solvers.newton import NewtonResult, newton_solve
+from ..utils.profiling import spanned
 
 # seconds a collective waits for the other ranks before it raises
 DEFAULT_TIMEOUT_S = 300.0
@@ -90,9 +91,9 @@ class ShardGroup:
     Attributes: ``rank``, ``world_size`` and ``backend`` of the default
     process group, ``n_real`` and this rank's row block ``[lo, hi)`` of
     ``count`` rows, the ``rank``-th block of
-    ``torch.tensor_split(range(n_real), world_size)``.  ``reduces`` and
-    ``reduce_seconds`` count the all-reduces and their host wall (the
-    wait for the slowest rank included).
+    ``torch.tensor_split(range(n_real), world_size)``.  ``reduces`` counts
+    the all-reduces, each a ``parallel.all_reduce`` span
+    (:mod:`..utils.profiling`).
     """
 
     def __init__(self, n_real: int):
@@ -110,7 +111,7 @@ class ShardGroup:
                                    self.world_size)[self.rank]
         self.lo, self.hi = int(block[0]), int(block[-1]) + 1
         self.count = self.hi - self.lo
-        self.reduces, self.reduce_seconds = 0, 0.0
+        self.reduces = 0
 
     def localize(self, cfg: ModelConfig, *xs: Optional[torch.Tensor],
                  P: int = 1) -> tuple:
@@ -135,22 +136,17 @@ class ShardGroup:
         raise ValueError(f"expected ({R}, N) or ({P * R}, N) rows; got "
                          f"{tuple(x.shape)}")
 
+    @spanned("parallel.all_reduce")
     def all_reduce(self, *tensors: torch.Tensor) -> tuple:
         """The sums over the ranks of ``tensors`` (one dtype, one device),
         in ONE all-reduce of their concatenation."""
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        if flat.is_cuda:
-            torch.cuda.synchronize(flat.device)
-        t0 = time.perf_counter()
         if flat.is_cuda and self.backend == "gloo":
             host = flat.cpu()
             dist.all_reduce(host)
             flat = host.to(flat.device)
         else:
             dist.all_reduce(flat)
-            if flat.is_cuda:
-                torch.cuda.synchronize(flat.device)
-        self.reduce_seconds += time.perf_counter() - t0
         self.reduces += 1
         out, at = [], 0
         for t in tensors:

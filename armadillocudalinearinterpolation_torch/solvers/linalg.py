@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
 
+
+@spanned("solvers.linear_solve")
 def solve_dense(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = b`` for ``b`` of shape ``(n,)`` or ``(n, k)``.
 

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..config import NewtonConfig
+from ..utils.profiling import span, spanned
 from .criterion import Criterion, residual_norm_criterion
 from .linalg import solve_dense
 
@@ -135,6 +136,7 @@ def _check_fd_mode(cfg: NewtonConfig) -> None:
             "make_arclength_step_frozen)")
 
 
+@spanned("solvers.newton")
 def newton_solve(
     F: Callable[[torch.Tensor], torch.Tensor],
     x0: torch.Tensor,
@@ -172,6 +174,7 @@ def newton_solve(
     dt_, dev = x0.dtype, x0.device
     log = cfg.print_output
 
+    @spanned("solvers.jacobian")
     def fresh_jacobian(x, f):
         if jacobian_fn is not None:
             return jacobian_fn(x)
@@ -204,27 +207,28 @@ def newton_solve(
         if (cfg.divergence_factor != math.inf
                 and not norm <= cfg.divergence_factor * norm0):
             break
-        try:
-            if jacobian0 is None:
-                jac = fresh_jacobian(x, f)
-                x, f, norm = step(jac, x, f)
-            else:
-                x_try, f_try, n_try = step(jac, x, f)
-                if n_try <= 0.9 * norm:
-                    x, f, norm = x_try, f_try, n_try
-                else:
+        with span("solvers.iteration"):
+            try:
+                if jacobian0 is None:
                     jac = fresh_jacobian(x, f)
-                    stale = False
                     x, f, norm = step(jac, x, f)
-        except JacobianUnavailable as e:
+                else:
+                    x_try, f_try, n_try = step(jac, x, f)
+                    if n_try <= 0.9 * norm:
+                        x, f, norm = x_try, f_try, n_try
+                    else:
+                        jac = fresh_jacobian(x, f)
+                        stale = False
+                        x, f, norm = step(jac, x, f)
+            except JacobianUnavailable as e:
+                if log:
+                    print(f" stopped: {e}")
+                break
+            it += 1
+            history.append(norm)
+            converged = test(norm)
             if log:
-                print(f" stopped: {e}")
-            break
-        it += 1
-        history.append(norm)
-        converged = test(norm)
-        if log:
-            _print_iteration(it, norm)
+                _print_iteration(it, norm)
 
     if stale:
         jac = fresh_jacobian(x, f)
@@ -237,6 +241,7 @@ def newton_solve(
                         jacobian=jac, residual=f)
 
 
+@spanned("solvers.polish")
 def frozen_jacobian_polish(
     F: Callable[[torch.Tensor], torch.Tensor],
     x0: torch.Tensor,

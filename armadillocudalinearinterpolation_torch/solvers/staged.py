@@ -42,6 +42,7 @@ from ..model.emap import (compute_discrete_outcome,
                           frozen_schedule_map_batched, make_residual_fn,
                           sample_beta)
 from ..model.replay import schedule_config
+from ..utils.profiling import span, spanned
 from .criterion import residual_norm_criterion
 from .linalg import solve_dense
 from .newton import (NewtonResult, _print_footer, _print_header,
@@ -70,6 +71,7 @@ def frozen_epsilon(ncfg: NewtonConfig) -> float:
     return ncfg.fd_epsilon if lo <= ncfg.fd_epsilon <= hi else default
 
 
+@spanned("solvers.newton")
 def frozen_newton_loop(evaluate: Callable, x0: torch.Tensor,
                        ncfg: NewtonConfig, eps: float, *, backtrack: bool,
                        score: Optional[Callable] = None,
@@ -93,6 +95,7 @@ def frozen_newton_loop(evaluate: Callable, x0: torch.Tensor,
     test = residual_norm_criterion(ncfg.tolerance)
     dt_ = x0.dtype
 
+    @spanned("solvers.jacobian")
     def ev(z, ep):
         f_, j_ = evaluate(z, ep)
         if not _finite(j_):
@@ -132,7 +135,8 @@ def frozen_newton_loop(evaluate: Callable, x0: torch.Tensor,
             # a scored trial won: one fused evaluation gives its Jacobian
             # and the authoritative F
             if fill is not None and best[4] is not None:
-                f_b, jac_b = fill(best[1], eps, best[4])
+                with span("solvers.jacobian"):
+                    f_b, jac_b = fill(best[1], eps, best[4])
                 if not _finite(jac_b):
                     f_b, jac_b = ev(best[1], eps)
             else:
@@ -144,24 +148,27 @@ def frozen_newton_loop(evaluate: Callable, x0: torch.Tensor,
         if (ncfg.divergence_factor != math.inf
                 and not norm <= ncfg.divergence_factor * norm0):
             break
-        if backtrack:
-            best = attempt(x, solve_dense(jac, -f), norm)
-            if not best[0] <= norm:
-                f_r, jac_r = evaluate(x, eps / 8.0)
-                if _finite(jac_r):
-                    best_r = attempt(x, solve_dense(jac_r, -f_r), norm)
-                    if best_r[0] == best_r[0] and not best_r[0] >= best[0]:
-                        best = best_r
-            norm, x, f, jac, _ = best
-        else:
-            x = x + float(ncfg.damping) * solve_dense(jac, -f)
-            f, jac = ev(x, eps)
-            norm = _norm(f)
-        it += 1
-        history.append(norm)
-        if ncfg.print_output:
-            _print_iteration(it, norm)
-        converged = test(norm)
+        with span("solvers.iteration"):
+            if backtrack:
+                best = attempt(x, solve_dense(jac, -f), norm)
+                if not best[0] <= norm:
+                    with span("solvers.jacobian"):
+                        f_r, jac_r = evaluate(x, eps / 8.0)
+                    if _finite(jac_r):
+                        best_r = attempt(x, solve_dense(jac_r, -f_r), norm)
+                        if (best_r[0] == best_r[0]
+                                and not best_r[0] >= best[0]):
+                            best = best_r
+                norm, x, f, jac, _ = best
+            else:
+                x = x + float(ncfg.damping) * solve_dense(jac, -f)
+                f, jac = ev(x, eps)
+                norm = _norm(f)
+            it += 1
+            history.append(norm)
+            if ncfg.print_output:
+                _print_iteration(it, norm)
+            converged = test(norm)
 
     if ncfg.print_output:
         _print_footer(it, converged)
@@ -280,6 +287,7 @@ def _resolve_staged(cfg: ModelConfig, tolerance: float,
     return cfg, cfg32, stage1_ncfg, stage2_ncfg, evolve_backend
 
 
+@spanned("solvers.staged")
 def newton_solve_staged(cfg: ModelConfig, params: MapParams,
                         Z0: torch.Tensor, *,
                         beta: Optional[torch.Tensor] = None,
@@ -347,8 +355,9 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
         cfg32, params32, 0, device=device, beta=beta.to(torch.float32),
         evolve_backend="torch" if evolve_backend == "torch" else "auto",
         group=group)
-    r32 = newton_solve(F32, Z0.to(dtype=torch.float32, device=device),
-                       stage1_ncfg)
+    with span("solvers.stage1"):
+        r32 = newton_solve(F32, Z0.to(dtype=torch.float32, device=device),
+                           stage1_ncfg)
     # a non-finite or 0-iteration stage 1 falls back to the guess at full
     # precision
     if _finite(r32.solution) and r32.iterations > 0:
@@ -362,20 +371,23 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
 
     def accurate_solve(x_start):
         """Stage 2 and the polish from ``x_start``: ``(pol, jac, iters)``."""
-        if frozen:
-            res = newton_solve_frozen(cfg, params, beta, x_start,
-                                      stage2_ncfg, group)
-        else:
-            res = newton_solve(F_acc, x_start, stage2_ncfg)
-        # a diverged stage 2 must not poison the polish
-        x2 = res.solution if _finite(res.solution) else x_start
-        jac = res.jacobian
-        if res.iterations == 0 and not frozen:
-            # stage 2 met its tolerance at entry and exported the identity
-            # placeholder: compute one real Jacobian for the polish
-            jac = (exact_jacobian(F_acc, x2)
-                   if stage2_ncfg.fd_mode == "exact" else
-                   central_fd_jacobian(F_acc, x2, stage2_ncfg.fd_epsilon))
+        with span("solvers.stage2"):
+            if frozen:
+                res = newton_solve_frozen(cfg, params, beta, x_start,
+                                          stage2_ncfg, group)
+            else:
+                res = newton_solve(F_acc, x_start, stage2_ncfg)
+            # a diverged stage 2 must not poison the polish
+            x2 = res.solution if _finite(res.solution) else x_start
+            jac = res.jacobian
+            if res.iterations == 0 and not frozen:
+                # stage 2 met its tolerance at entry and exported the
+                # identity placeholder: one real Jacobian for the polish
+                with span("solvers.jacobian"):
+                    jac = (exact_jacobian(F_acc, x2)
+                           if stage2_ncfg.fd_mode == "exact" else
+                           central_fd_jacobian(F_acc, x2,
+                                               stage2_ncfg.fd_epsilon))
         pol = frozen_jacobian_polish(F_acc, x2, jac,
                                      max_iterations=polish_iterations,
                                      tolerance=0.9 * tolerance)
@@ -402,7 +414,8 @@ def newton_solve_staged(cfg: ModelConfig, params: MapParams,
          or dist(pol.solution) > basin_radius) and stage1_iters > 0):
         # rescue: the f32 stage can hand off into another basin; re-solve
         # from the caller's guess on the accurate stages
-        pol_r, jac_r, iters_r = accurate_solve(z_guess)
+        with span("solvers.rescue"):
+            pol_r, jac_r, iters_r = accurate_solve(z_guess)
         acc_iters += iters_r
         nr, n0 = pol_r.residual_norm, pol.residual_norm
         if (nr <= tolerance and in_domain(pol_r.solution)

@@ -3234,10 +3234,23 @@ def walkers(pt, torch, dev, smi: str, z_config4):
     return row
 
 
+def allreduce_ms(torch, work) -> list:
+    """Host ms of each ``parallel.all_reduce`` span in ``work()``, run
+    under a CPU profiler (the span replaces the group's own timer, which
+    synchronised the card around every all-reduce)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        work()
+        torch.cuda.synchronize()
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.name == "parallel.all_reduce"]
+
+
 def shard_config3(pt, torch, dev, group, n_evals):
     """Config 3's map on the card, sharded over ``group`` (None: one
     process): ``n_evals`` timed evaluations after a warm-up, with the launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after; sharded, then
+    ``n_evals`` more under a profiler for the all-reduce's host ms."""
     cfg = pt.ModelConfig(n_neurons=MAP_N, n_real=MAP_R, dtype="float32",
                          evolve_window=MAP_WINDOW)
     params = pt.MapParams.create(BETA, SIGMA, dtype="float32", device=dev)
@@ -3249,7 +3262,7 @@ def shard_config3(pt, torch, dev, group, n_evals):
     F(z)
     torch.cuda.synchronize()
     if group is not None:
-        group.reduces, group.reduce_seconds = 0, 0.0
+        group.reduces = 0
     zero_launch_counts()
     walls = []
     for _ in range(n_evals):
@@ -3262,9 +3275,9 @@ def shard_config3(pt, torch, dev, group, n_evals):
            "launches": launch_counts()}
     if group is not None:
         out.update(block=[group.lo, group.hi], backend=group.backend,
-                   allreduces=group.reduces,
-                   allreduce_ms_mean=group.reduce_seconds * 1e3
-                   / group.reduces)
+                   allreduces=group.reduces)
+        ms = allreduce_ms(torch, lambda: [F(z) for _ in range(n_evals)])
+        out["allreduce_ms_mean"] = statistics.mean(ms)
     return out
 
 
@@ -3274,7 +3287,8 @@ def shard_config4(pt, torch, dev, group):
     its process's first uses; the second is timed as warm) with the launch
     counts set to 0 just before the warm solve and read just after: the
     replay default (K1, K2) and the replay with an exact stage 2 (K1, K2T,
-    K2)."""
+    K2); sharded, a third solve under a profiler for the all-reduces' host
+    ms."""
     cfg = pt.ModelConfig(**CONFIG4)
     params = pt.MapParams.create(BETA, SIGMA, dtype="float64", device=dev)
     beta = pt.sample_beta(cfg, params,
@@ -3289,7 +3303,7 @@ def shard_config4(pt, torch, dev, group):
         for _ in range(2):
             torch.cuda.synchronize()
             if group is not None:
-                group.reduces, group.reduce_seconds = 0, 0.0
+                group.reduces = 0
             zero_launch_counts()
             t0 = time.perf_counter()
             res = pt.newton_solve_staged(cfg, params, z0, beta=beta,
@@ -3304,8 +3318,11 @@ def shard_config4(pt, torch, dev, group):
                      "residual_norm": res.residual_norm,
                      "solution": res.solution.double().cpu().tolist()}
         if group is not None:
-            out[name].update(allreduces=group.reduces,
-                             allreduce_ms_total=group.reduce_seconds * 1e3)
+            out[name]["allreduces"] = group.reduces
+            out[name]["allreduce_ms_total"] = sum(allreduce_ms(
+                torch, lambda: pt.newton_solve_staged(
+                    cfg, params, z0, beta=beta, tolerance=STAGED_TOL,
+                    stage2_ncfg=ncfg2, group=group)))
     return out
 
 
