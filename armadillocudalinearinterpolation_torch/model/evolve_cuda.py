@@ -64,13 +64,14 @@ def row_shared_bytes(N: int, M: int, dtype: torch.dtype, kind: str) -> int:
     (``kind="evolve"``, values of ``dtype``) or ``csrc/replay.cu``
     (``kind="replay"``, always float64): the row and kick table, the
     per-trajectory times, indices and flags, and the scalars (the evolve's
-    also three 32-slot tables for its block reduction; the replay's the
-    two-slot mailbox of its events).  The tangent kernel's CTAs are
-    counted by :func:`.replay_cuda.tangent_shared_bytes`."""
+    also three 32-slot tables for its block reduction and its window runs'
+    ranked starts; the replay's the two-slot mailbox of its events).  The
+    tangent kernel's CTAs are counted by
+    :func:`.replay_cuda.tangent_shared_bytes`."""
     if kind == "evolve":
         item = torch.empty((), dtype=dtype).element_size()
         return (row_elems(N) + 2 * M + 32 + 32 + 4) * item \
-            + (3 * M + 32 + 4) * 4
+            + (4 * M + 32 + 4) * 4
     if kind == "replay":
         return (row_elems(N) + 2 * M + 2) * 8 + (3 * M + 2) * 4
     raise ValueError(f"kind must be 'evolve' or 'replay'; got {kind!r}")

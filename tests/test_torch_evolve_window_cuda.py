@@ -118,6 +118,38 @@ def test_windowed_kernel_is_the_full_kernel_and_near_plain(card, dtype,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fast_family_window_holds_on_the_card(card, dtype):
+    """W=128 at N=512 on the coexisting fast wave family's start
+    (benchmark/traffic/sweep_fast_family.json), whose third tracked spike
+    sits at index 0 and never fires near there: every row equal to the
+    kernel on every lane, and to the plain windowed evolve bit for bit,
+    fallback counts included; under 5% of the events fall back (one
+    window from the lowest tracked index dropped over 90% of them)."""
+    cfg = pt.ModelConfig(n_neurons=512, n_real=16, dtype=dtype,
+                         evolve_window=128)
+    params = pt.MapParams.create(13.3589, 0.1, dtype=dtype, device=card)
+    beta = pt.sample_beta(cfg, params, torch.Generator(card).manual_seed(0))
+    Z = torch.tensor([[0.4988, 0.5761, 11.0139]], dtype=cfg.torch_dtype,
+                     device=card)
+    v0, s0 = (x.contiguous() for x in pt.lift(cfg, params, pt.z_to_u(Z)))
+    ii = pt.initial_spike_indices(cfg, Z).contiguous()
+    assert int(ii.min()) == 0
+    fb = torch.zeros(16, dtype=torch.int32, device=card)
+    fb_plain = torch.zeros(16, dtype=torch.int32, device=card)
+    rw = evolve_cuda.evolve_ensemble_cuda(cfg, v0, s0, beta, ii,
+                                          fallbacks=fb)
+    rf = evolve_cuda.evolve_ensemble_cuda(cfg.with_(evolve_window=0), v0, s0,
+                                          beta, ii)
+    rp = evolve_ensemble_batched(cfg, v0, s0, beta, ii, fallbacks=fb_plain)
+    assert_equal_results(rw, rf)
+    assert_equal_results(rp, rw)
+    assert torch.equal(fb, fb_plain)
+    events = int(rw.n_events.sum())
+    assert bool(rw.accept.all()) and events > 4000
+    assert int(fb.sum()) < 0.05 * events
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_forced_fallback_stays_exact_on_the_card(card, dtype):
     """Spikes spread far beyond one 128-lane window (the case of
     tests/test_evolve_batched.py:58-90): every row falls back, and the
