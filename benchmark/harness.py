@@ -14,6 +14,24 @@ Everything a cell is made of is found by name:
 
 A later cell, configuration, traffic mix or metric adds files and entries;
 it edits none of these.
+
+The cards a run used are measured, not assumed.  ``driver_of`` builds a
+loop's ``Driver(config, traffic, seed, device, chips=...)`` with the cell's
+``chips``; a loop that runs on one card refuses any other number.  After
+the window, before ``Driver.release()``, the harness takes one record for
+each card the run put work on: its index, its name and its peak of
+allocated memory (``local_devices``).  A loop whose ranks live in other
+processes reports its cards through an optional ``Driver.devices()``,
+which gathers every rank's ``local_devices`` (its own included), so the
+per-card memory comes from every rank; without the hook the harness reads
+its own process.  The result's ``device`` then gives the distinct cards'
+one ``kind``, their ``count``, the fullest card's ``memory_peak_bytes``
+and the cards themselves (``per_device``), and a run on fewer cards than
+its cell's ``chips``, or on cards of more than one kind, prints no result
+(``run.py``).  The device trace (``busy_s`` and the trace's metrics) and
+the program's spans and counters are read in the harness process alone,
+so a multi-card loop runs its rank 0 in that process; the other ranks'
+spans stay unread.
 """
 
 from __future__ import annotations
@@ -80,7 +98,61 @@ def reader(name: str):
 
 def driver_of(spec, seed: int, device):
     loop = importlib.import_module(f"benchmark.loops.{spec.traffic['loop']}")
-    return loop.Driver(spec.config, spec.traffic, seed, device)
+    return loop.Driver(spec.config, spec.traffic, seed, device,
+                       chips=spec.cell["chips"])
+
+
+def local_devices(device) -> list:
+    """One record for each card this process put work on: ``index``,
+    ``name``, ``uuid`` and ``memory_peak_bytes``, the allocator's peak.  A
+    visible card counts where that peak is above 0 (reading a card's
+    allocator statistics creates no context on it).  On the CPU, one
+    record of the CPU."""
+    if torch.device(device).type != "cuda":
+        return [{"index": 0, "name": "cpu", "uuid": "cpu",
+                 "memory_peak_bytes": 0}]
+    out = []
+    for i in range(torch.cuda.device_count()):
+        peak = torch.cuda.max_memory_allocated(i)
+        if peak > 0:
+            props = torch.cuda.get_device_properties(i)
+            out.append({"index": i, "name": props.name,
+                        "uuid": str(props.uuid),
+                        "memory_peak_bytes": int(peak)})
+    return out
+
+
+def device_report(records: list, platform: str) -> dict:
+    """The result's ``device`` from the records of every process of the
+    run.  A card (by its uuid) that several processes used counts once,
+    with the sum of their peaks."""
+    cards = {}
+    for r in records:
+        card = cards.setdefault(r["uuid"], {"index": r["index"],
+                                            "name": r["name"],
+                                            "memory_peak_bytes": 0})
+        card["memory_peak_bytes"] += int(r["memory_peak_bytes"])
+    per = sorted(cards.values(), key=lambda c: c["index"])
+    return {"platform": platform,
+            "kind": ", ".join(sorted({c["name"] for c in per})),
+            "count": len(per),
+            "memory_peak_bytes": max((c["memory_peak_bytes"] for c in per),
+                                     default=0),
+            "per_device": per}
+
+
+def device_fault(dev: dict, chips: int):
+    """Why the run's cards do not stand for a cell on ``chips`` cards
+    (fewer of them, or more than one kind), or None."""
+    used = "; ".join(f"card {c['index']} {c['name']} peak "
+                     f"{c['memory_peak_bytes']} B"
+                     for c in dev["per_device"]) or "none"
+    if dev["count"] < chips:
+        return (f"the cell needs {chips} card(s) and the run used "
+                f"{dev['count']}: {used}")
+    if len({c["name"] for c in dev["per_device"]}) > 1:
+        return f"the run's cards are of more than one kind: {used}"
+    return None
 
 
 def forbidden_modules() -> list:
@@ -115,8 +187,9 @@ def run_window(driver, seconds: float, device):
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
              trace: bool, device, t_start: float, spec=None) -> dict:
-    """Run the cell once and return ``{"result", "lines"}``: the result
-    object (its ``checks`` key last) and the lines of the checks."""
+    """Run the cell once and return ``{"result", "lines", "chips"}``: the
+    result object (its ``checks`` key last), the lines of the checks and
+    the cards the cell asks for."""
     spec = spec or cell_spec(root, workload)
     driver = driver_of(spec, seed, device)
     driver.warm_up()
@@ -136,8 +209,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     if prof is not None:
         prof.__exit__(None, None, None)
     after = driver.counters()
-    peak = (torch.cuda.max_memory_allocated()
-            if torch.device(device).type == "cuda" else 0)
+    cards = (driver.devices() if hasattr(driver, "devices")
+             else local_devices(device))
     if hasattr(driver, "finish"):
         driver.finish(records)
     work = sum(r["work"] for r in records)
@@ -168,11 +241,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     numbers = driver.check(records)
     numbers["unconverged_share"] = 100.0 * failed / max(attempted, 1)
     correct, checks = answers.compare(numbers, spec.limits)
-    dev = {"platform": "gpu" if torch.device(device).type == "cuda"
-           else "cpu",
-           "kind": (torch.cuda.get_device_name(0)
-                    if torch.device(device).type == "cuda" else "cpu"),
-           "count": 1, "memory_peak_bytes": int(peak)}
+    dev = device_report(cards, "gpu" if torch.device(device).type == "cuda"
+                        else "cpu")
     result = {"correct": bool(correct), "attempted": int(attempted),
               "failed": int(failed), "metrics": metrics, "device": dev}
     if tdata is not None:
@@ -182,5 +252,5 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     result["checks"] = checks
     lines += [f"check {k}: {v['value']!r} against the limit {v['limit']!r}"
               for k, v in checks.items()]
-    return {"result": result, "lines": lines}
+    return {"result": result, "lines": lines, "chips": spec.cell["chips"]}
 

@@ -79,7 +79,11 @@ def read_steps(path: Path) -> list:
 class Driver:
     work_unit = "step"
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device):
+    def __init__(self, config: dict, traffic: dict, seed: int, device,
+                 chips: int = 1):
+        if chips != 1:
+            raise ValueError(f"cli_sweep runs its sweeps on one card; "
+                             f"the cell asks for {chips}")
         from armadillocudalinearinterpolation_torch.cli import driver
         self.main = driver.main
         self.config, self.traffic, self.seed = config, traffic, seed

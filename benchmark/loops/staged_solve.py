@@ -33,7 +33,11 @@ STAGE2_BACKENDS = {"frozen-fwd": {"cuda": "replay", "cpu": "replay"},
 class Driver:
     work_unit = "solve"
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device):
+    def __init__(self, config: dict, traffic: dict, seed: int, device,
+                 chips: int = 1):
+        if chips != 1:
+            raise ValueError(f"staged_solve runs its solves on one card; "
+                             f"the cell asks for {chips}")
         import armadillocudalinearinterpolation_torch as pt
         self.pt = pt
         self.config, self.traffic, self.seed = config, traffic, seed

@@ -4,7 +4,9 @@
         --trace <0|1>
 
 from the root of a checkout.  It needs a CUDA card (as many as the cell
-asks for) and never falls back to the CPU.  Set-up (imports, the kernels'
+asks for) and never falls back to the CPU; a run that used fewer cards
+than its cell's ``chips``, or cards of more than one kind, prints no
+result (``benchmark.harness``).  Set-up (imports, the kernels'
 build into the checkout's ``build/kernels/`` on its first run or their
 load, the draws, a warm-up of the cell's own shapes) counts as
 ``setup_s``; then whole solves or sweeps run until ``--seconds`` have
@@ -46,8 +48,11 @@ def emit(out: dict) -> int:
     """Print the checks' lines on standard error and the result line on
     standard output, unless a forbidden module (JAX or the JAX package)
     has been loaded by then, by the window, a metric reader or the
-    check: then name it and print no result (exit code 3)."""
-    from benchmark.harness import forbidden_modules
+    check: then name it and print no result (exit code 3); or unless the
+    run used fewer cards than its cell's ``chips``, or cards of more than
+    one kind: then name the cards it used and print no result (exit code
+    4)."""
+    from benchmark.harness import device_fault, forbidden_modules
     from benchmark.yardstick import nvidia_smi
     result = dict(out["result"])
     result["metrics"] = {k: v for k, v in result["metrics"].items()
@@ -60,6 +65,10 @@ def emit(out: dict) -> int:
         print("error: modules that the port's run must not load: "
               + ", ".join(found), file=sys.stderr)
         return 3
+    fault = device_fault(result["device"], out["chips"])
+    if fault:
+        print(f"error: {fault}", file=sys.stderr)
+        return 4
     for line in out["lines"]:
         print(line, file=sys.stderr)
     sys.stderr.flush()
