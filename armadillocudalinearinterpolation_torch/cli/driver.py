@@ -30,16 +30,19 @@ numbers, as the JAX CLI's walkers keep one unsplit key).  Exact Jacobians
 
 Run:  python -m armadillocudalinearinterpolation_torch.cli.driver --help
 
-``--shard N`` (the JAX package's mesh-sharded solves) starts N ranks here
-(``torch.multiprocessing``, ``spawn``; :func:`..parallel.sharding.run_ranks`)
-that split the realisations: NCCL where every rank has a card of its own,
+``--shard N`` (the JAX package's mesh-sharded solves) runs on N ranks
+that split the realisations (a :class:`..parallel.sharding.RankPool`
+started for the run, this process rank 0, the others spawned): NCCL
+where every rank has a card of its own,
 gloo on the CPU or where ranks share a card.  Every rank makes the step's
 full draw from the same seed and keeps its rows, so the numbers are the
 unsharded run's up to the reassociated ensemble sum.  Rank 0 alone prints,
 writes checkpoints, stage dumps (of the whole ensemble, on its own) and
 profiles.  It shards the sweep (plain, ``--staged`` and the frozen modes)
 and the frozen arclength and branch correctors; elsewhere it is ignored
-with a warning, as in the JAX CLI.
+with a warning, as in the JAX CLI.  A caller that runs many sweeps passes
+``main(argv, pool=...)`` a pool of N ranks that it keeps: the ranks then
+outlive the run.  The draw goes to ranks 1 .. N-1 pickled.
 """
 
 from __future__ import annotations
@@ -262,12 +265,15 @@ def predicted_retry_needed(res) -> bool:
 
 
 def main(argv=None, *, draw: Optional[Callable] = None,
-         noise=None) -> int:
+         noise=None, pool=None) -> int:
     """Run the CLI on ``argv``; returns the exit code.
 
     ``draw(step, params)``, if given, replaces the per-step draws of
     :func:`step_draws`, and ``noise`` (an ``(R, N)`` array) the walkers'
     noise (the parity tests pass the JAX package's draws and noise).
+    ``pool``, a :class:`..parallel.sharding.RankPool` of ``--shard``
+    ranks on the run's device, runs a sharded run on its ranks in place
+    of a pool started for the run.
     """
     with span("cli.setup"):
         args = build_parser().parse_args(argv)
@@ -290,12 +296,18 @@ def main(argv=None, *, draw: Optional[Callable] = None,
               "--enumerate-branches with --fd-mode frozen or frozen-fwd)",
               file=sys.stderr)
         args.shard = 0
-    if args.shard > 1:
-        from ..parallel import run_ranks
-        rcs = run_ranks(_rank_run, args.shard, args, draw, noise,
-                        device="cpu" if args.cpu else "cuda")
-        return rcs[0]
-    return _profiled_run(args, draw, noise)
+    if args.shard <= 1:
+        return _profiled_run(args, draw, noise)
+    device = "cpu" if args.cpu else "cuda"
+    if pool is None:
+        from ..parallel import RankPool
+        with RankPool(args.shard, device) as own:
+            return own.run(_rank_run, args, draw, noise)
+    if (pool.world_size, pool.device_type) != (args.shard, device):
+        return _error(f"error: --shard {args.shard} on {device} cannot "
+                      f"run on a pool of {pool.world_size} rank(s) on "
+                      f"{pool.device_type}")
+    return pool.run(_rank_run, args, draw, noise)
 
 
 def shard_ignored(args) -> bool:

@@ -2,6 +2,7 @@
 ``torch.distributed`` ranks (the JAX package's ``parallel/``)."""
 
 from .sharding import (
+    RankPool,
     ShardGroup,
     choose_backend,
     event_driven_map_sharded,
@@ -11,6 +12,7 @@ from .sharding import (
 )
 
 __all__ = [
+    "RankPool",
     "ShardGroup",
     "choose_backend",
     "event_driven_map_sharded",

@@ -18,8 +18,12 @@ per-rank draws).
 Every host decision of the solvers (convergence, damping, the staged
 rescue, an exact Jacobian's outcome check) is taken on all-reduced values,
 so the ranks never part ways around a collective.  The process group has
-a timeout, and :func:`run_ranks` brings the whole run down when one rank
-raises.
+a timeout, and a rank that raises brings the whole call down.
+
+The ranks live in a :class:`RankPool`: the calling process is rank 0, the
+others are spawned once and run call after call in ONE process group
+(``cli.driver.main(..., pool=...)`` runs sweeps on one); :func:`run_ranks`
+is one call on a pool of its own, with every rank's result.
 
 Backends: NCCL where every rank has its own card, gloo on the CPU and for
 ranks that share a card (NCCL refuses two ranks on one GPU); gloo moves a
@@ -29,24 +33,38 @@ CUDA tensor's sums through the host.  The choice is printed.
 from __future__ import annotations
 
 import datetime
+import io
+import multiprocessing
+import multiprocessing.connection
+import os
+import pickle
+import shutil
 import sys
 import tempfile
+import threading
 import time
 import traceback
+import weakref
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
-from torch.multiprocessing.spawn import ProcessException
 
 from ..config import MapParams, ModelConfig, NewtonConfig
 from ..model.emap import event_driven_map, make_residual_fn
 from ..solvers.newton import NewtonResult, newton_solve
-from ..utils.profiling import spanned
+from ..utils.profiling import span, spanned
 
 # seconds a collective waits for the other ranks before it raises
 DEFAULT_TIMEOUT_S = 300.0
+# seconds a closing pool waits for a rank to exit before it kills it
+JOIN_TIMEOUT_S = 60.0
+
+# every all-reduce of a ShardGroup in this process, and the bytes they
+# moved (each rank's contribution), counted traced or not
+ALL_REDUCES = 0
+ALL_REDUCE_BYTES = 0
 
 
 def choose_backend(device_type: str, world_size: int) -> str:
@@ -92,14 +110,15 @@ class ShardGroup:
     process group, ``n_real`` and this rank's row block ``[lo, hi)`` of
     ``count`` rows, the ``rank``-th block of
     ``torch.tensor_split(range(n_real), world_size)``.  ``reduces`` counts
-    the all-reduces, each a ``parallel.all_reduce`` span
-    (:mod:`..utils.profiling`).
+    the group's all-reduces, each a ``parallel.all_reduce`` span
+    (:mod:`..utils.profiling`); the module's ``ALL_REDUCES`` and
+    ``ALL_REDUCE_BYTES`` count every group's.
     """
 
     def __init__(self, n_real: int):
         if not dist.is_initialized():
             raise RuntimeError("ShardGroup needs an initialised process "
-                               "group (run_ranks)")
+                               "group (a RankPool's rank)")
         self.rank = dist.get_rank()
         self.world_size = dist.get_world_size()
         self.backend = dist.get_backend()
@@ -140,6 +159,7 @@ class ShardGroup:
     def all_reduce(self, *tensors: torch.Tensor) -> tuple:
         """The sums over the ranks of ``tensors`` (one dtype, one device),
         in ONE all-reduce of their concatenation."""
+        global ALL_REDUCES, ALL_REDUCE_BYTES
         flat = torch.cat([t.reshape(-1) for t in tensors])
         if flat.is_cuda and self.backend == "gloo":
             host = flat.cpu()
@@ -148,6 +168,8 @@ class ShardGroup:
         else:
             dist.all_reduce(flat)
         self.reduces += 1
+        ALL_REDUCES += 1
+        ALL_REDUCE_BYTES += flat.numel() * flat.element_size()
         out, at = [], 0
         for t in tensors:
             out.append(flat[at:at + t.numel()].view(t.shape))
@@ -185,66 +207,279 @@ def sharded_newton_solve(cfg: ModelConfig, params: MapParams,
                         newton_cfg)
 
 
-def _rank_main(rank: int, fn: Callable, args: tuple, world_size: int,
-               init_method: str, device_type: str, timeout_s: float,
-               out_dir: str, threads: int) -> None:
-    """One rank of :func:`run_ranks`: join the group, run ``fn(*args)``,
-    save its result for the parent; on an error, record when it came (the
-    ranks that wait for this one fail after it, in a collective)."""
-    torch.set_num_threads(threads)
-    _init_ranks(rank, world_size, init_method, device_type, timeout_s)
-    try:
-        out = fn(*args)
-    except BaseException:
-        Path(out_dir, f"rank{rank}.error").write_text(
-            f"{time.time()!r}\n{traceback.format_exc()}")
-        raise
-    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
-    dist.destroy_process_group()
+def _gathered(fn: Callable, *args) -> list:
+    buf = io.BytesIO()
+    torch.save(fn(*args), buf)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, buf.getvalue())
+    return [torch.load(io.BytesIO(b), map_location="cpu", weights_only=False)
+            for b in out]
 
 
 def run_ranks(fn: Callable, world_size: int, *args,
               device: str = "cuda", timeout_s: float = DEFAULT_TIMEOUT_S,
               workdir: Optional[str] = None) -> list:
-    """Run ``fn(*args)`` on ``world_size`` ranks started here with the
-    ``spawn`` method (CUDA cannot be forked), each in the default process
-    group, and return the list of their results (rank order; saved with
-    ``torch.save``, loaded onto the CPU).
+    """Run ``fn(*args)`` once on ``world_size`` ranks, on a
+    :class:`RankPool` of its own (this process is rank 0; the pool is
+    closed on return), and return the list of their results (rank order,
+    loaded onto the CPU).
 
     ``fn`` and ``args`` must pickle (a module-level function); ``fn``
-    makes its :class:`ShardGroup`.  On ``"cuda"`` the kernel library is
-    built here first, so the ranks only load it.  The ranks meet at a
-    ``file://`` store in a fresh temporary directory
-    (inside ``workdir`` if given) and share this process's CPU threads.
-    When a rank raises, the others are stopped and a ``RuntimeError``
-    with the traceback of the rank that failed first is raised here; a
-    rank that dies without one raises ``torch.multiprocessing``'s
-    ``ProcessExitedException``.
+    makes its :class:`ShardGroup`.  When a rank raises or dies, the call
+    raises a ``RuntimeError`` with the traceback of the rank that failed
+    first (:meth:`RankPool.gather`).
     """
-    if world_size < 1:
-        raise ValueError(f"world_size must be positive; got {world_size}")
-    device_type = torch.device(device).type
-    choose_backend(device_type, world_size)    # refuse a bad setup here
-    if device_type == "cuda":
-        from .._build import load_library
-        load_library()
-    with tempfile.TemporaryDirectory(prefix="atorch_ranks_",
-                                     dir=workdir) as tmp:
-        init_method = Path(tmp, "store").as_uri()
+    with RankPool(world_size, device, timeout_s=timeout_s,
+                  workdir=workdir) as pool:
+        return pool.gather(fn, *args)
+
+
+def _exit_with(caller: int) -> None:
+    """Exit this process once ``caller``, its parent, is gone: a rank
+    whose caller died is never left behind."""
+    while os.getppid() == caller:
+        time.sleep(0.5)
+    os._exit(1)
+
+
+def _reply(conn, fn: Callable, *args) -> bool:
+    """Run ``fn(*args)`` and tell the caller how it ended: ``("ok",
+    None)``, or ``("error", (time, traceback))``."""
+    try:
+        fn(*args)
+    except BaseException:
+        conn.send(("error", (time.time(), traceback.format_exc())))
+        return False
+    conn.send(("ok", None))
+    return True
+
+
+def _run_task(task: bytes) -> None:
+    fn, args, kwargs = pickle.loads(task)
+    fn(*args, **kwargs)
+
+
+def _pool_rank(rank: int, world_size: int, init_method: str,
+               device_type: str, timeout_s: float, threads: int, conn,
+               caller: int) -> None:
+    """Rank ``rank`` of a :class:`RankPool`: join the group, then run each
+    call the caller sends until an empty message stops it; then destroy
+    the group.  After a failure it waits to be stopped."""
+    threading.Thread(target=_exit_with, args=(caller,), daemon=True).start()
+    torch.set_num_threads(threads)
+    ok = _reply(conn, _init_ranks, rank, world_size, init_method,
+                device_type, timeout_s)
+    while True:
         try:
-            torch.multiprocessing.spawn(
-                _rank_main, args=(fn, args, world_size, init_method,
-                                  device_type, timeout_s, tmp,
-                                  max(1, torch.get_num_threads()
-                                      // world_size)),
-                nprocs=world_size, join=True)
-        except ProcessException as err:
-            errors = [(*path.read_text().split("\n", 1), path.stem)
-                      for path in Path(tmp).glob("rank*.error")]
-            if not errors:
-                raise
-            _, trace, name = min(errors, key=lambda e: float(e[0]))
-            raise RuntimeError(f"{name} failed first:\n{trace}") from err
-        return [torch.load(Path(tmp) / f"rank{r}.pt", map_location="cpu",
-                           weights_only=False)
-                for r in range(world_size)]
+            task = conn.recv_bytes()
+        except EOFError:
+            return
+        if not task:
+            break
+        if ok:
+            ok = _reply(conn, _run_task, task)
+    if ok:
+        dist.destroy_process_group()
+
+
+def _release(conns: list, procs: list, directory: str) -> None:
+    """Stop a pool's ranks: tell each to stop, destroy this process's
+    group (NCCL's destroy waits for every rank), join each rank (one that
+    does not exit in ``JOIN_TIMEOUT_S`` is killed) and remove the store's
+    folder.  After a failure the ranks are dead already."""
+    for conn in conns:
+        try:
+            conn.send_bytes(b"")
+        except OSError:                # a rank that was killed
+            pass
+    if dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except RuntimeError:           # a gloo group whose peers are gone
+            pass
+    for proc in procs:
+        proc.join(timeout=JOIN_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    for conn in conns:
+        conn.close()
+    shutil.rmtree(directory, ignore_errors=True)
+
+
+def _abort_group() -> None:
+    """Abort this process's NCCL group, so that a collective it waits in
+    ends (a gloo collective ends by itself once its peers are gone)."""
+    try:
+        if dist.is_initialized() and dist.get_backend() == "nccl":
+            dist.distributed_c10d._abort_process_group()
+    except (RuntimeError, ValueError):      # already aborted or destroyed
+        pass
+
+
+class RankPool:
+    """Ranks that outlive a call: ``world_size`` ranks in ONE process
+    group for the pool's whole life.  The calling process is rank 0 (on
+    ``cuda:0``, or the CPU); ranks 1 .. ``world_size - 1`` are started
+    once with ``spawn`` (CUDA cannot be forked), rank r on ``cuda:r``
+    modulo the cards (the backend as :func:`choose_backend` picks it).
+    On ``"cuda"`` the kernel library is built here first, so the ranks
+    only load it.  They meet at a ``file://`` store in a fresh temporary
+    directory (inside ``workdir`` if given), and each of ranks 1 .. takes
+    an equal share of this process's CPU threads.
+
+    :meth:`run` runs ``fn(*args, **kwargs)`` on every rank and returns
+    rank 0's result.  ``fn`` and its arguments go to the other ranks
+    pickled by value (a module-level function; a tensor is copied, so
+    make large ones on each rank).  While a call runs, a thread of rank 0
+    watches the other ranks; when one raises or dies, the others are
+    killed and rank 0's group aborted, so that rank 0 leaves any
+    collective it waits in, and the call raises a ``RuntimeError`` with
+    the traceback of the rank that failed first (an interrupt or exit of
+    rank 0 is raised as itself).  A failed call, or a failed start,
+    closes the pool.  A rank whose caller died exits by itself.
+
+    :meth:`close` (also at the end of a ``with`` block, when the pool is
+    collected, and at the interpreter's exit) stops the ranks in order:
+    rank 0 destroys the group (NCCL's destroy waits for every rank), then
+    joins the others.
+    The pool's spans: ``parallel.start``, ``parallel.dispatch`` (a call
+    sent to the other ranks) and ``parallel.collect`` (rank 0 waiting for
+    their replies after its own part).
+    """
+
+    def __init__(self, world_size: int, device: str = "cuda", *,
+                 timeout_s: float = DEFAULT_TIMEOUT_S,
+                 workdir: Optional[str] = None):
+        if world_size < 1:
+            raise ValueError(f"world_size must be positive; got "
+                             f"{world_size}")
+        if dist.is_initialized():
+            raise RuntimeError("this process is already in a process group")
+        self.world_size = world_size
+        self.device_type = torch.device(device).type
+        self.backend = choose_backend(self.device_type, world_size)
+        self._failures = []
+        self._lock = threading.Lock()
+        self._conns, self._procs = [], []
+        if self.device_type == "cuda":
+            from .._build import load_library
+            load_library()
+        self._dir = tempfile.mkdtemp(prefix="atorch_pool_", dir=workdir)
+        init_method = Path(self._dir, "store").as_uri()
+        ctx = multiprocessing.get_context("spawn")
+        threads = max(1, torch.get_num_threads() // world_size)
+        self._stop = weakref.finalize(self, _release, self._conns,
+                                      self._procs, self._dir)
+        with span("parallel.start"):
+            for rank in range(1, world_size):
+                mine, theirs = ctx.Pipe()
+                proc = ctx.Process(
+                    target=_pool_rank, name=f"rank{rank}", daemon=True,
+                    args=(rank, world_size, init_method, self.device_type,
+                          timeout_s, threads, theirs, os.getpid()))
+                proc.start()
+                theirs.close()
+                self._conns.append(mine)
+                self._procs.append(proc)
+            self._call(_init_ranks, 0, world_size, init_method,
+                       self.device_type, timeout_s)
+
+    @property
+    def closed(self) -> bool:
+        return not self._stop.alive
+
+    @property
+    def pids(self) -> list:
+        """The process ids of ranks 1 .. ``world_size - 1``."""
+        return [p.pid for p in self._procs]
+
+    def run(self, fn: Callable, *args, **kwargs):
+        """``fn(*args, **kwargs)`` on every rank; rank 0's result."""
+        if self.closed:
+            raise RuntimeError("the pool is closed")
+        with span("parallel.dispatch"):
+            task = pickle.dumps((fn, args, kwargs))
+            for conn in self._conns:
+                conn.send_bytes(task)
+        return self._call(fn, *args, **kwargs)
+
+    def gather(self, fn: Callable, *args) -> list:
+        """``fn(*args)`` on every rank; every rank's result, in rank
+        order, loaded onto the CPU (``torch.save``, then ``torch.load``
+        with ``map_location="cpu"``)."""
+        return self.run(_gathered, fn, *args)
+
+    def _call(self, fn: Callable, *args, **kwargs):
+        """``fn(*args, **kwargs)`` here while a thread waits for the other
+        ranks' replies to the call they were sent."""
+        watcher = threading.Thread(target=self._watch, daemon=True)
+        watcher.start()
+        out = interrupt = None
+        try:
+            out = fn(*args, **kwargs)
+        except BaseException as err:
+            self._failed(time.time(), 0, traceback.format_exc())
+            if not isinstance(err, Exception):     # an interrupt or an exit
+                interrupt = err
+        with span("parallel.collect"):
+            watcher.join()
+        if self._failures:
+            self._stop()
+            if interrupt is not None:
+                raise interrupt
+            _, rank, trace = min(self._failures)
+            raise RuntimeError(f"rank{rank} failed first:\n{trace}")
+        return out
+
+    def _watch(self) -> None:
+        """Read one reply from every other rank; a reply of an error, or
+        a rank that exits, fails the call."""
+        waiting = dict(zip(self._conns, range(1, self.world_size)))
+        sentinels = {p.sentinel: r for r, p in enumerate(self._procs, 1)}
+        while waiting:
+            ready = multiprocessing.connection.wait(
+                list(waiting) + [s for s, r in sentinels.items()
+                                 if r in waiting.values()])
+            # a rank's reply before its exit: the reply has the traceback
+            ready.sort(key=lambda x: x not in waiting)
+            for obj in ready:
+                if obj in waiting:
+                    rank = waiting.pop(obj)
+                    try:
+                        kind, payload = obj.recv()
+                    except (EOFError, OSError):
+                        kind, payload = "error", (
+                            time.time(), f"rank{rank} closed its pipe")
+                    if kind == "error":
+                        when, trace = payload
+                        self._failed(when, rank, trace)
+                        return
+                elif sentinels[obj] in waiting.values():
+                    rank = sentinels[obj]
+                    self._failed(time.time(), rank, (
+                        f"rank{rank} exited with code "
+                        f"{self._procs[rank - 1].exitcode}"))
+                    return
+
+    def _failed(self, when: float, rank: int, trace: str) -> None:
+        """Record a failure; at the first, kill the other ranks and abort
+        rank 0's group, so that no rank waits in a collective."""
+        with self._lock:
+            self._failures.append((when, rank, trace))
+            if len(self._failures) > 1:
+                return
+        for proc in self._procs:
+            proc.kill()
+        _abort_group()
+
+    def close(self) -> None:
+        """Stop the ranks (:func:`_release`); closing twice does
+        nothing."""
+        self._stop()
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

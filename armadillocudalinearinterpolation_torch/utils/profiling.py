@@ -24,7 +24,10 @@ part before the first dot:
   a point's firing order), ``map.lift``, ``map.restrict``, ``map.mean``,
   ``map.jvp`` (:mod:`..model.emap`, :mod:`..model.lift`,
   :mod:`..model.restrict`);
-* ``parallel``: ``parallel.all_reduce`` (:mod:`..parallel.sharding`).
+* ``parallel``: ``parallel.all_reduce``, and a
+  :class:`..parallel.sharding.RankPool`'s ``parallel.start``,
+  ``parallel.dispatch`` and ``parallel.collect``
+  (:mod:`..parallel.sharding`).
 
 The ops (``atorch::*``) are recorded by PyTorch itself, inside these
 spans; no span is opened inside an op's kernels.
@@ -36,7 +39,9 @@ window (``evolve_window > 0``) its rows, events and fallback events (the
 windowed events that fell back to every lane) into
 :data:`K1_COUNTERS`.  The sums stay on the device until
 :meth:`K1Counters.snapshot` reads them.  The launch counters ``LAUNCHES`` of the
-kernel modules count every launch, traced or not.
+kernel modules count every launch, traced or not, and so do
+:mod:`..parallel.sharding`'s ``ALL_REDUCES`` and ``ALL_REDUCE_BYTES`` for
+every all-reduce of this process and its bytes.
 
 :func:`trace` records host and, where a CUDA card is present, device
 activity, spans included, and writes a Chrome trace (``chrome://tracing``,

@@ -1,6 +1,6 @@
 """The port's ensemble sharding (``parallel/sharding.py``) on the CPU: gloo
-ranks started with ``spawn`` against the JAX package's two multi-device
-routes on its 8-device virtual mesh (``tests/test_sharding.py``,
+ranks (the test process and spawned ones) against the JAX package's two
+multi-device routes on its 8-device virtual mesh (``tests/test_sharding.py``,
 ``tests/test_shard_map.py``), and against the unsharded port.
 
 The ranks run ``tests/torch_shard_workers.py`` (torch and the port only)

@@ -1,6 +1,7 @@
-"""Ensemble sharding on the card: ranks started with ``spawn`` run the
-kernels (K1, K2, K2T) on their rows, held to the unsharded run on the same
-card.  Two ranks on one card take gloo; a world of one takes NCCL.
+"""Ensemble sharding on the card: the ranks of :func:`run_ranks` (the
+test process and ranks spawned) run the kernels (K1, K2, K2T) on their
+rows, held to the unsharded run on the same card.  Two ranks on one card
+take gloo; a world of one takes NCCL.
 
 Every test here needs a CUDA card and skips without one.  The file and
 its workers import no JAX:

@@ -1,13 +1,16 @@
 """Rank workers of the sharding tests.
 
-The ranks are started with the ``spawn`` method and import this module by
-name: it imports torch and the port only, never JAX or ``conftest.py``.
-Each case function makes its :class:`ShardGroup` and returns tensors on
-the CPU; :func:`run_cases` runs a list of cases in one start of the
-ranks.
+The ranks of a :class:`RankPool` other than rank 0 (the test process) are
+started with the ``spawn`` method and import this module by name: it
+imports torch and the port only, never JAX or ``conftest.py``.  Each case
+function makes its :class:`ShardGroup` and returns tensors on the CPU;
+:func:`run_cases` runs a list of cases in one call of the ranks.
 """
 
+import os
+
 import torch
+import torch.distributed as dist
 
 import armadillocudalinearinterpolation_torch as pt
 from armadillocudalinearinterpolation_torch.analysis.continuation import (
@@ -77,12 +80,34 @@ def exact_jacobian(cfg, params, noise, z, param):
     return {"f": f.cpu(), "J": J.cpu(), "reduces": g.reduces}
 
 
+def whereabouts():
+    """This rank's process and device."""
+    return {"rank": dist.get_rank(), "pid": os.getpid(),
+            "device": str(_rank_device())}
+
+
+def _rank_device():
+    """This rank's card under NCCL, else the CPU."""
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+
+def reduce_twice(n_real):
+    """Two all-reduces of three float64 ones; the second's sums."""
+    g = ShardGroup(n_real)
+    ones = torch.ones(3, dtype=torch.float64, device=_rank_device())
+    g.all_reduce(ones)
+    return g.all_reduce(ones)[0].cpu()
+
+
 def raise_on_rank(n_real, rank):
     """Rank ``rank`` raises before the collective the others wait in."""
     g = ShardGroup(n_real)
     if g.rank == rank:
         raise RuntimeError(f"rank {rank} fails on purpose")
-    return g.all_reduce(torch.zeros(3, dtype=torch.float64))
+    out = g.all_reduce(torch.zeros(3, dtype=torch.float64,
+                                   device=_rank_device()))
+    return out[0].cpu()
 
 
 def group_of(n_real):
