@@ -10,11 +10,27 @@
 //
 // What bounds it: each event costs every evaluated lane a fire decision
 // (one pow) and a Newton root-find for the lanes that fire (two exp per
-// step), and every lane the closed-form advance (two exp); and each event
-// needs one block-wide argmin over (time, index) pairs with its
-// __syncthreads before any lane can advance.  A row runs ~400 events one
-// after another at N=512, ~3500 at N=4096.  So the design cuts the lane
-// work per event and keeps the serial part short:
+// step), and every lane the closed-form advance (two exp and a division,
+// all in full precision, as the plain version rounds them); and each event
+// needs one block-wide argmin over (time, index) pairs before any lane can
+// advance.  A row runs ~500 events one after another at N=512, ~3400 at
+// N=4096.  With one pass and one barrier an event (below), the pass takes
+// about two thirds of an event at config 4's 64-row launches (clock64
+// readings on an H100: the reduction with its wait on the pass's last
+// results a quarter, the bookkeeping 8%), so the lanes' arithmetic and the
+// root-find's chain now bound it; rows of 64 or 128 threads (the fast
+// family) pay each warp's copy of the bookkeeping.  So the design cuts
+// the lane work per event and keeps the serial part short:
+// - one pass and one barrier an event (run_events): the reduction leaves
+//   the event (dt, j) in every thread; every thread classifies it, moves t
+//   on, takes the stop test and finds the next event's window itself, so
+//   no thread waits on a bookkeeping thread; then one pass advances each
+//   lane by the event and, on the values still in registers, scores it
+//   for the next one (its firing time in the window, its certificate
+//   outside).  The per-warp winners alternate between two slots, so one
+//   barrier is enough (block_argmin).  Thread 0 alone writes the next copy
+//   of the tracked indices (two copies, by the event's parity), the
+//   trajectories' times and the logs.
 // - the certified window (W > 0): the root-find runs on at most W lanes
 //   around the row's tracked spikes, cyclically.  A row whose initial
 //   tracked indices lie in one run of W lanes from (min(last_ind) - pad_w)
@@ -34,13 +50,14 @@
 //   (run_events), so a one-run row runs the one-run code alone: the runs'
 //   union would leave the certificate more lanes than the threads' stride,
 //   and a choice at every event cost config 4's f32 rows 5% on an H100.
-//   In a row of runs, warp 0 ranks the runs' starts into shared memory
-//   (row.win) after each event; the root-find takes their lanes side by
-//   side, and the certificate walks the gaps between them with each
-//   thread's stride carried from gap to gap, so no lane tests which run it
-//   is in (such a test cost config 3's K1 30%).  Each CTA owns one row, so
-//   the window is anchored per row and moves with it: no persistent
-//   rolls, no hysteresis, no block-wide fallback.
+//   In a row of runs, every warp ranks the runs' starts into its own
+//   slot of shared memory (row.win) after each event that moves a
+//   tracked spike; the pass takes the runs' union side by side, then the
+//   gaps between them, each thread stepping from stretch to stretch, so
+//   no lane tests which run it is in (such a test cost config 3's K1
+//   30%).  Each CTA owns one row, so the window is anchored per row and
+//   moves with it: no persistent rolls, no hysteresis, no block-wide
+//   fallback.
 // - the kick table: w(d) = (a1 e^{-b1 d dx} - a2 e^{-b2 d dx}) dx for
 //   d <= N/2, computed once per row with the very expression the per-lane
 //   kick used, so the advance reads it instead of two exp per lane.
@@ -52,13 +69,13 @@
 // N), the row keeps them in a (rows, 3N + N/2 + 1) scratch in device memory
 // that the wrapper allocates (resident rows x row bytes stays in the 50 MB
 // L2), and the same kernel body runs on those pointers.  The argmin is a
-// warp shuffle on (time, index) pairs, then one warp over the per-warp
-// winners: three barriers per event.  One thread keeps the row's
-// bookkeeping.
+// warp minimum (redux.sync) on keys that order (time, index) as the plain
+// argmin does, then, after the one barrier, every warp's minimum over the
+// per-warp winners.
 //
 // Firing-order log (evolve_pallas.py:148-154,475-482): given a non-null
-// `sched`, the bookkeeping thread writes sched[row * E + k] = j for the
-// row's event k < E, so the log holds only the lanes the row really fired;
+// `sched`, thread 0 writes sched[row * E + k] = j for the row's event
+// k < E, so the log holds only the lanes the row really fired;
 // a row with more than E events keeps counting n_events and logs nothing
 // past column E - 1 (the replay rejects it through n_events > E).  The
 // wrapper zero-fills the log.  Given a non-null `times` beside it (the time
@@ -80,10 +97,6 @@ namespace {
 // rather than left to spin: t grows by a nonnegative dt per event, and a
 // physical row needs a few thousand.
 constexpr int kEventGuard = 1 << 24;
-
-// slots of the row's shared scalars
-constexpr int kT = 0, kDt = 1, kRmin = 2;               // scal[4]
-constexpr int kJ = 0, kDone = 1, kEvents = 2, kFallbacks = 3;  // iscal[4]
 
 __device__ __forceinline__ float xlog(float x) { return logf(x); }
 __device__ __forceinline__ double xlog(double x) { return ::log(x); }
@@ -109,17 +122,55 @@ __device__ __forceinline__ T nan_max(T x, T lo) {
   return (isnan(x) || x > lo) ? x : lo;
 }
 
+// Keys whose unsigned order is the order of the warp's minima: a time or
+// certificate ratio that is not NaN is +0 or more (event_time returns |t|
+// plus a nonnegative number; a ratio is positive, +inf or 1), so its bits
+// plus one order as the number, and NaN takes 0, before every number.
+__device__ __forceinline__ unsigned order_key(float x) {
+  return isnan(x) ? 0u : __float_as_uint(x) + 1u;
+}
+__device__ __forceinline__ unsigned long long order_key(double x) {
+  return isnan(x) ? 0ull : (unsigned long long)__double_as_longlong(x) + 1ull;
+}
+__device__ __forceinline__ float key_value(unsigned k, float) {
+  return __uint_as_float(k - 1u);
+}
+__device__ __forceinline__ double key_value(unsigned long long k, double) {
+  return __longlong_as_double((long long)(k - 1ull));
+}
+
+// The warp's unsigned minimum, in every lane (a 64-bit key by its high
+// word, then its low word among the lanes that hold that high word).
+__device__ __forceinline__ unsigned warp_min(unsigned x) {
+  return __reduce_min_sync(0xffffffffu, x);
+}
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long x) {
+  const unsigned hi = __reduce_min_sync(0xffffffffu, (unsigned)(x >> 32));
+  const unsigned lo = __reduce_min_sync(
+      0xffffffffu, (unsigned)(x >> 32) == hi ? (unsigned)x : 0xffffffffu);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// (time, index) argmin (before()'s order) and NaN-first minimum of r
+// (nan_min()'s) over a warp, in every lane, on the keys: the lowest time
+// key, then the lowest index among the lanes that hold it.  A NaN time
+// keeps its own bits (the winner's lane sends it); a NaN bound only fails
+// the certificate, so any NaN will do.
 template <typename T>
 __device__ __forceinline__ void warp_argmin(T& t, int& i, T& r) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ot = __shfl_down_sync(0xffffffffu, t, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    r = nan_min(r, __shfl_down_sync(0xffffffffu, r, off));
-    if (before(ot, oi, t, i)) {
-      t = ot;
-      i = oi;
-    }
-  }
+  const auto kt = order_key(t);
+  const auto mt = warp_min(kt);
+  const int mi = (int)__reduce_min_sync(
+      0xffffffffu, kt == mt ? (unsigned)i : 0xffffffffu);
+  const auto mr = warp_min(order_key(r));
+  if (mt == 0)
+    t = __shfl_sync(0xffffffffu, t,
+                    __ffs(__ballot_sync(0xffffffffu, i == mi && kt == mt)) -
+                        1);
+  else
+    t = key_value(mt, t);
+  i = mi;
+  r = mr == 0 ? T(NAN) : key_value(mr, r);
 }
 
 // The out-of-window certificate of one lane as a ratio: its crossing time
@@ -146,49 +197,189 @@ __device__ __forceinline__ T kick_weight(int d, const Consts& c) {
           - T(c.a2) * xexp(T(c.neg_b2) * dist)) * dx;
 }
 
+// Warps a CTA may have: 1024 threads for float, 512 for double (whose
+// registers leave room for no more); the per-warp tables hold this many,
+// so that two config-4 rows of doubles still share an SM's shared memory.
+template <typename T>
+__host__ __device__ constexpr int max_warps() {
+  return sizeof(T) == 8 ? 16 : 32;
+}
+
 // The row's state: v, s, beta and the kick table (shared or device memory)
-// and the small shared part.
+// and the small shared part: the trajectories' times and crossing indices
+// (thread 0's), two copies of the tracked indices and crossed flags (the
+// event's parity: event k reads copy k & 1 and thread 0 writes copy
+// (k + 1) & 1), two slots of per-warp winners (the reduction's parity)
+// and each warp's M ranked run starts.
 template <typename T>
 struct Row {
   T *v, *s, *b, *w;
-  T *last_time, *crossed_time, *red_t, *red_r, *scal;
-  int *last_ind, *crossed_ind, *crossed, *red_i, *iscal, *win;
+  T *last_time, *crossed_time, *red_t, *red_r;
+  int *ind, *crossed, *crossed_ind, *red_i, *win;
 };
 
-// Block-wide (time, index) argmin of the threads' (bt, bi) and NaN-first
-// minimum of their r, into scal[kDt], iscal[kJ], scal[kRmin].  Two barriers;
-// every thread may read the result after it.
+// The block's (time, index) argmin of the threads' (bt, bi) and NaN-first
+// minimum of their r, in every thread, with one barrier: each warp's
+// winner goes to slot ph, and after the barrier every warp reduces the
+// per-warp winners itself.  A warp writes slot ph again two reductions
+// later, after the next barrier, which no warp passes before it has read
+// this one; ph flips.
 template <typename T>
-__device__ void block_select(T bt, int bi, T r, const Row<T>& row) {
+__device__ __forceinline__ void block_argmin(T& bt, int& bi, T& r,
+                                             const Row<T>& row, int& ph) {
   const int warp = threadIdx.x >> 5, lane_id = threadIdx.x & 31;
   const int nwarps = (blockDim.x + 31) >> 5;
   warp_argmin(bt, bi, r);
+  constexpr int kW = max_warps<T>();
+  T* rt = row.red_t + kW * ph;
+  T* rr = row.red_r + kW * ph;
+  int* ri = row.red_i + kW * ph;
   if (lane_id == 0) {
-    row.red_t[warp] = bt;
-    row.red_i[warp] = bi;
-    row.red_r[warp] = r;
+    rt[warp] = bt;
+    ri[warp] = bi;
+    rr[warp] = r;
   }
   __syncthreads();
-  if (warp == 0) {
-    bt = lane_id < nwarps ? row.red_t[lane_id] : T(INFINITY);
-    bi = lane_id < nwarps ? row.red_i[lane_id] : 0x7fffffff;
-    r = lane_id < nwarps ? row.red_r[lane_id] : T(INFINITY);
-    warp_argmin(bt, bi, r);
-    if (lane_id == 0) {
-      row.scal[kDt] = bt;
-      row.iscal[kJ] = bi;
-      row.scal[kRmin] = r;
-    }
-  }
-  __syncthreads();
+  bt = lane_id < nwarps ? rt[lane_id] : T(INFINITY);
+  bi = lane_id < nwarps ? ri[lane_id] : 0x7fffffff;
+  r = lane_id < nwarps ? rr[lane_id] : T(INFINITY);
+  warp_argmin(bt, bi, r);
+  ph ^= 1;
 }
 
-// The event over every lane: each lane proposes its firing time, lowest
-// index on ties.  The whole event of W = 0 and the fallback of W > 0.
+// One lane's part of an event: where kAdvance, the analytic advance by
+// (dt, j) (emt = e^{-dt}), the reset of the firing lane and the ring kick,
+// stored; then, on the values in registers, its score for the next event:
+// its firing time (kTime) into (bt, bi), lowest index on ties, else its
+// certificate ratio into r.
+template <typename T, bool kAdvance, bool kTime>
+__device__ __forceinline__ void visit(const Row<T>& row, int i, int N, T dt,
+                                      T emt, int j, const Consts& c, T& bt,
+                                      int& bi, T& r) {
+  T vi = row.v[i], si = row.s[i];
+  const T bi_ = row.b[i];
+  if (kAdvance) {
+    const T drive = T(c.drive);
+    T vn = vi * emt + drive * (T(1) - emt)
+           + si * emt / (T(1) - bi_) * (xexp((T(1) - bi_) * dt) - T(1));
+    if (i == j) vn = T(0);
+    const int d = abs(i - j);
+    si = si * xexp(-bi_ * dt) + bi_ * row.w[min(d, N - d)];
+    vi = vn;
+    row.v[i] = vi;
+    row.s[i] = si;
+  }
+  if (kTime) {
+    const T ti = event_time(vi, si, bi_, c);
+    if (before(ti, i, bt, bi)) {
+      bt = ti;
+      bi = i;
+    }
+  } else {
+    const T floor = sizeof(T) == 8 ? T(1e-300) : T(1e-30);
+    r = nan_min(r, certificate_ratio(vi, si, bi_, T(c.drive), T(c.vth),
+                                     floor));
+  }
+}
+
+// visit() over lanes [from, to) of the ring (unwrapped, below 2N): the
+// thread takes every blockDim.x-th lane from offset k, and k carries on to
+// the next stretch, so that consecutive stretches spread over the threads
+// as one strided loop's lanes would.
+template <typename T, bool kAdvance, bool kTime>
+__device__ __forceinline__ void visit_run(const Row<T>& row, int from,
+                                          int to, int& k, int N, T dt, T emt,
+                                          int j, const Consts& c, T& bt,
+                                          int& bi, T& r) {
+  const int len = to - from;
+  for (; k < len; k += blockDim.x) {
+    int i = from + k;
+    if (i >= N) i -= N;
+    visit<T, kAdvance, kTime>(row, i, N, dt, emt, j, c, bt, bi, r);
+  }
+  if (len > 0) k -= len;
+}
+
+// The window's geometry: every lane timed (W = 0); the one run of W lanes
+// from `start`; or the runs of Wm lanes from each warp's ranked starts.
+constexpr int kAll = 0, kOneRun = 1, kRuns = 2;
+
+// One pass over every lane of the row in the next event's geometry: each
+// lane is advanced by (dt, j) where kAdvance and scored for the next event
+// into (bt, bi, r).  Each lane is visited once, so the pass may own it in
+// any thread: the window's lanes first, spread evenly over the threads,
+// then the others.  kRuns: the runs' union from the lowest start, each run
+// clipped to what the runs before it left (a lane in two runs is one
+// lane), then the gaps between them once round the ring.  Each of the two
+// is one loop, whose threads step from stretch to stretch on their own, so
+// that a warp whose lanes fall in two runs still takes the root-find
+// together; no lane tests which run it is in (such a test cost config 3's
+// K1 30%).
+template <typename T, int kGeom, bool kAdvance>
+__device__ __forceinline__ void pass(const Row<T>& row, int N, int M, int W,
+                                     int start, const int* ws, int Wm, T dt,
+                                     int j, const Consts& c, T& bt, int& bi,
+                                     T& r) {
+  const T emt = kAdvance ? xexp(-dt) : T(1);
+  bt = T(INFINITY);
+  bi = 0x7fffffff;
+  r = T(INFINITY);
+  int k = threadIdx.x;
+  if (kGeom == kAll) {
+    visit_run<T, kAdvance, true>(row, 0, N, k, N, dt, emt, j, c, bt, bi, r);
+  } else if (kGeom == kOneRun) {
+    visit_run<T, kAdvance, true>(row, start, start + W, k, N, dt, emt, j, c,
+                                 bt, bi, r);
+    visit_run<T, kAdvance, false>(row, start + W, start + N, k, N, dt, emt,
+                                  j, c, bt, bi, r);
+  } else {
+    // stretch n of the union is [from, to) (unwrapped, empty where to <=
+    // from); k - base is the thread's place in it
+    const int last = ws[0] + N;
+    int n = 0, base = 0, end = ws[0];
+    int from = ws[0], to = min(ws[0] + Wm, last);
+    for (;; k += blockDim.x) {
+      while (k - base >= max(to - from, 0)) {
+        base += max(to - from, 0);
+        end = max(end, to);
+        if (++n == M) break;
+        from = max(ws[n], end);
+        to = min(ws[n] + Wm, last);
+      }
+      if (n == M) break;
+      int i = from + (k - base);
+      if (i >= N) i -= N;
+      visit<T, kAdvance, true>(row, i, N, dt, emt, j, c, bt, bi, r);
+    }
+    // gap n runs from the union's end so far to the next run's start
+    k -= base;
+    n = 0;
+    base = 0;
+    from = min(ws[0] + Wm, last);
+    to = M > 1 ? ws[1] : last;
+    for (;; k += blockDim.x) {
+      while (k - base >= max(to - from, 0)) {
+        base += max(to - from, 0);
+        if (++n == M) break;
+        from = max(from, min(ws[n] + Wm, last));
+        to = n + 1 < M ? ws[n + 1] : last;
+      }
+      if (n == M) break;
+      int i = from + (k - base);
+      if (i >= N) i -= N;
+      visit<T, kAdvance, false>(row, i, N, dt, emt, j, c, bt, bi, r);
+    }
+  }
+}
+
+// The event over every lane, on the state before its advance: the
+// fallback of W > 0.
 template <typename T>
-__device__ void select_full(const Row<T>& row, int N, const Consts& c) {
-  T bt = T(INFINITY);
-  int bi = 0x7fffffff;
+__device__ void select_full(const Row<T>& row, int N, const Consts& c,
+                            T& bt, int& bi, T& r, int& ph) {
+  bt = T(INFINITY);
+  bi = 0x7fffffff;
+  r = T(INFINITY);
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const T ti = event_time(row.v[i], row.s[i], row.b[i], c);
     if (before(ti, i, bt, bi)) {
@@ -196,22 +387,7 @@ __device__ void select_full(const Row<T>& row, int N, const Consts& c) {
       bi = i;
     }
   }
-  block_select(bt, bi, T(INFINITY), row);
-}
-
-// The windowed event (bt, bi) where it is at most the log of the other
-// lanes' smallest certificate ratio r, else the event over every lane.
-template <typename T>
-__device__ __forceinline__ void select_certified(T bt, int bi, T r,
-                                                 const Row<T>& row, int N,
-                                                 const Consts& c) {
-  block_select(bt, bi, r, row);
-  // the same values for every thread: the branch is block-uniform.  A NaN
-  // bound fails (the full pass would put a NaN time first).
-  if (!(row.scal[kDt] <= xlog(row.scal[kRmin]))) {
-    select_full(row, N, c);
-    if (threadIdx.x == 0) row.iscal[kFallbacks] += 1;
-  }
+  block_argmin(bt, bi, r, row, ph);
 }
 
 // x mod N, in [0, N); one add or subtract where x lies in [-N, 2N).
@@ -227,121 +403,47 @@ __device__ __forceinline__ int ring(int x, int N) {
   return x;
 }
 
-// The M tracked spikes' run starts in ascending order (ties in spike
-// order) into row.win: warp 0, each lane ranking its spikes' runs against
-// all M.
-template <typename T>
-__device__ void rank_windows(const Row<T>& row, int N, int M, int pad_m) {
-  const int* li = row.last_ind;
-  for (int m = threadIdx.x; m < M; m += 32) {
-    const int s = ring(li[m] - pad_m, N);
-    int rank = 0;
-    for (int q = 0; q < M; ++q) {
-      const int sq = ring(li[q] - pad_m, N);
-      rank += sq < s || (sq == s && q < m);
-    }
-    row.win[rank] = s;
-  }
+// Tracked index m after the event: li[m], or j where the event moved
+// trajectory mm (mm < 0: none moved).
+__device__ __forceinline__ int tracked(const int* li, int m, int mm, int j) {
+  return m == mm ? j : li[m];
 }
 
-// Certificate ratios of lanes [from, to) (unwrapped, below 2N) into r: the
-// thread takes every blockDim.x-th lane from offset j, and j carries on to
-// the next run, so that the runs' lanes spread over the threads as one
-// strided loop's would.
-template <typename T>
-__device__ __forceinline__ void certify_run(const Row<T>& row, int from,
-                                            int to, int N, int& j, T& r,
-                                            T drive, T vth, T floor) {
-  const int len = to - from;
-  for (; j < len; j += blockDim.x) {
-    int i = from + j;
-    if (i >= N) i -= N;
-    r = nan_min(r, certificate_ratio(row.v[i], row.s[i], row.b[i], drive,
-                                     vth, floor));
+// The M tracked spikes' run starts in ascending order (ties in spike
+// order) into the warp's own ws, each lane ranking its spikes' runs
+// against all M; the warp's lanes read them after the __syncwarp.
+__device__ __forceinline__ void rank_windows(int* ws, const int* li, int mm,
+                                             int j, int N, int M,
+                                             int pad_m) {
+  for (int m = threadIdx.x & 31; m < M; m += 32) {
+    const int s = ring(tracked(li, m, mm, j) - pad_m, N);
+    int rank = 0;
+    for (int q = 0; q < M; ++q) {
+      const int sq = ring(tracked(li, q, mm, j) - pad_m, N);
+      rank += sq < s || (sq == s && q < m);
+    }
+    ws[rank] = s;
   }
-  if (len > 0) j -= len;
+  __syncwarp();
+}
+
+// The start of the one run of W lanes: pad_w lanes before the lowest
+// tracked index, cyclic.
+__device__ __forceinline__ int one_run_start(const int* li, int mm, int j,
+                                             int N, int M, int pad_w) {
+  int lo = tracked(li, 0, mm, j);
+  for (int m = 1; m < M; ++m) lo = min(lo, tracked(li, m, mm, j));
+  return ring(lo - pad_w, N);
 }
 
 // Whether the one run of W lanes from pad_w lanes before the lowest tracked
 // index holds every tracked index.
 __device__ __forceinline__ bool one_run_holds(const int* li, int N, int M,
                                               int W, int pad_w) {
-  int lo = li[0];
-  for (int m = 1; m < M; ++m) lo = min(lo, li[m]);
-  const int start = ring(lo - pad_w, N);
+  const int start = one_run_start(li, -1, 0, N, M, pad_w);
   bool holds = true;
   for (int m = 0; m < M; ++m) holds = holds && ring(li[m] - start, N) < W;
   return holds;
-}
-
-// The event over the one run of W lanes from start = (min(last_ind) -
-// pad_w) mod N (cyclic), certified by the other lanes' bound; falls back
-// to select_full.
-template <typename T>
-__device__ void select_one_run(const Row<T>& row, int N, int M, int W,
-                               int pad_w, const Consts& c) {
-  int lo = row.last_ind[0];
-  for (int m = 1; m < M; ++m) lo = min(lo, row.last_ind[m]);
-  int start = (lo - pad_w) % N;
-  if (start < 0) start += N;
-  T bt = T(INFINITY);
-  int bi = 0x7fffffff;
-  for (int k = threadIdx.x; k < W; k += blockDim.x) {
-    int i = start + k;
-    if (i >= N) i -= N;
-    const T ti = event_time(row.v[i], row.s[i], row.b[i], c);
-    if (before(ti, i, bt, bi)) {
-      bt = ti;
-      bi = i;
-    }
-  }
-  const T drive = T(c.drive), vth = T(c.vth);
-  const T floor = sizeof(T) == 8 ? T(1e-300) : T(1e-30);
-  T r = T(INFINITY);
-  for (int k = threadIdx.x; k < N - W; k += blockDim.x) {
-    int i = start + W + k;
-    if (i >= N) i -= N;
-    r = nan_min(r, certificate_ratio(row.v[i], row.s[i], row.b[i], drive,
-                                     vth, floor));
-  }
-  select_certified(bt, bi, r, row, N, c);
-}
-
-// The event over the union of the M runs of Wm lanes from the starts in
-// row.win (cyclic), certified by the other lanes' bound; falls back to
-// select_full.  The root-find takes the runs' lanes side by side, spread
-// evenly over the threads (a lane in two runs is evaluated twice, which
-// moves no minimum); the certificate walks the gaps between the runs,
-// from the lowest start once round the ring.
-template <typename T>
-__device__ void select_runs(const Row<T>& row, int N, int M, int Wm,
-                            const Consts& c) {
-  T bt = T(INFINITY);
-  int bi = 0x7fffffff;
-  for (int k = threadIdx.x; k < M * Wm; k += blockDim.x) {
-    const int n = M <= 4 ? (k >= Wm) + (k >= 2 * Wm) + (k >= 3 * Wm)
-                         : k / Wm;
-    int i = row.win[n] + (k - n * Wm);
-    if (i >= N) i -= N;
-    const T ti = event_time(row.v[i], row.s[i], row.b[i], c);
-    if (before(ti, i, bt, bi)) {
-      bt = ti;
-      bi = i;
-    }
-  }
-  const T drive = T(c.drive), vth = T(c.vth);
-  const T floor = sizeof(T) == 8 ? T(1e-300) : T(1e-30);
-  T r = T(INFINITY);
-  int j = threadIdx.x;
-  const int first = row.win[0];
-  int end = first + Wm;  // lanes [first, end) walked, unwrapped
-  for (int n = 1; n < M; ++n) {
-    const int s = row.win[n];
-    certify_run(row, end, s, N, j, r, drive, vth, floor);
-    end = max(end, min(s + Wm, first + N));
-  }
-  certify_run(row, end, first + N, N, j, r, drive, vth, floor);
-  select_certified(bt, bi, r, row, N, c);
 }
 
 // Elements of a row's v, s, beta and kick table.
@@ -349,68 +451,118 @@ __host__ __device__ __forceinline__ size_t row_elems(int N) {
   return 3 * (size_t)N + (size_t)(N / 2 + 1);
 }
 
-// The row's event loop: select, advance, bookkeeping, until it stops.
-// kWindow: the window's geometry for W > 0 (kRuns ranks the runs' starts
-// after every event).
-constexpr int kOneRun = 0, kRuns = 1;
+// What a row's event loop leaves: its events and fallbacks, and whether
+// every trajectory crossed.
+struct RowEnd {
+  int events, fallbacks;
+  bool accept;
+};
 
-template <typename T, int kWindow>
-__device__ __forceinline__ void run_events(const Row<T>& row, int row_id,
-                                           int N, int M, int W, int pad_w,
-                                           int Wm, int pad_m, const Consts& c,
-                                           int* __restrict__ sched, int E,
-                                           double* __restrict__ times) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
+// The row's event loop, one pass and one barrier an event: the reduction
+// gives every thread the event (dt, j); every thread classifies it, moves
+// t on and takes the stop test on its own (the same numbers in every
+// thread, so the stop is uniform), and finds the next event's window from
+// the tracked indices as the event leaves them; then one pass advances
+// each lane by the event and scores it for the next one.  Thread 0 alone
+// writes the next copy of the tracked indices, the trajectories' times and
+// the logs.  The row's first event scores the initial state.
+template <typename T, int kGeom>
+__device__ __forceinline__ RowEnd run_events(const Row<T>& row, int row_id,
+                                             int N, int M, int W, int pad_w,
+                                             int Wm, int pad_m,
+                                             const Consts& c,
+                                             int* __restrict__ sched, int E,
+                                             double* __restrict__ times) {
+  const int tid = threadIdx.x;
   const T T_h = T(c.t_horizon), two_T = T(2) * T(c.t_horizon);
-  const T drive = T(c.drive);
-  while (!row.iscal[kDone]) {
-    // 1-2. the row's event (dt, j): lowest index on ties
-    if (W == 0)
-      select_full(row, N, c);
-    else if (kWindow == kOneRun)
-      select_one_run(row, N, M, W, pad_w, c);
-    else
-      select_runs(row, N, M, Wm, c);
-    const T dt = row.scal[kDt];
-    const int j = row.iscal[kJ];
-
-    // 3. analytic advance, reset of the firing lane, ring kick
-    const T emt = xexp(-dt);
-    for (int i = tid; i < N; i += nthr) {
-      const T vi = row.v[i], si = row.s[i], bi_ = row.b[i];
-      T vn = vi * emt + drive * (T(1) - emt)
-             + si * emt / (T(1) - bi_) * (xexp((T(1) - bi_) * dt) - T(1));
-      if (i == j) vn = T(0);
-      const int d = abs(i - j);
-      row.v[i] = vn;
-      row.s[i] = si * xexp(-bi_ * dt) + bi_ * row.w[min(d, N - d)];
+  int* ws = row.win + (tid >> 5) * M;
+  int start = 0;
+  if (kGeom == kOneRun) start = one_run_start(row.ind, -1, 0, N, M, pad_w);
+  if (kGeom == kRuns) rank_windows(ws, row.ind, -1, 0, N, M, pad_m);
+  T bt, r;
+  int bi;
+  pass<T, kGeom, false>(row, N, M, W, start, ws, Wm, T(0), -1, c, bt, bi, r);
+  T t = T(0);
+  int nev = 0, nfb = 0, n_crossed = 0, ph = 0;
+  for (;;) {
+    // the row's event (dt, j): lowest index on ties; the windowed one where
+    // it is at most the log of the other lanes' smallest certificate ratio
+    // (a NaN bound fails: the full pass would put a NaN time first), else
+    // the event over every lane
+    block_argmin(bt, bi, r, row, ph);
+    if (kGeom != kAll && !(bt <= xlog(r))) {
+      select_full(row, N, c, bt, bi, r, ph);
+      ++nfb;
     }
+    const T dt = bt;
+    const int j = bi;
 
-    // 4. bookkeeping: nearest trajectory (lowest id on ties), last or
-    //    crossed, and the stop test
+    // bookkeeping: the nearest trajectory (lowest id on ties), recorded as
+    // its last firing before T or its first after it unless it crossed
+    // (model/events.py::classify_event), and the stop test; the same pass
+    // over the copy finds, for one run, the lowest tracked index and the
+    // lowest of the others, whichever trajectory the event moves
+    const int* li = row.ind + (nev & 1) * M;
+    const int* cr = row.crossed + (nev & 1) * M;
+    int mm = 0, dmin = abs(j - li[0]);
+    bool open = !cr[0];
+    int lo1 = li[0], at1 = 0, lo2 = 0x7fffffff;
+    for (int m = 1; m < M; ++m) {
+      const int lm = li[m], dm = abs(j - lm);
+      const bool om = !cr[m];
+      if (dm < dmin) {
+        dmin = dm;
+        mm = m;
+        open = om;
+      }
+      if (kGeom == kOneRun) {
+        if (lm < lo1) {
+          lo2 = lo1;
+          lo1 = lm;
+          at1 = m;
+        } else {
+          lo2 = min(lo2, lm);
+        }
+      }
+    }
+    t = t + dt;
+    const bool crosses = open && t > T_h;
+    const bool moves = open && !crosses;
+    const bool stop = n_crossed + crosses == M || !(t < two_T) ||
+                      nev + 1 >= kEventGuard;
+
+    // the next event's window, from the tracked indices the event leaves;
+    // where it moves none, the window stays
+    if (moves && !stop) {
+      if (kGeom == kOneRun)
+        start = ring(min(j, at1 == mm ? lo2 : lo1) - pad_w, N);
+      if (kGeom == kRuns) rank_windows(ws, li, mm, j, N, M, pad_m);
+    }
     if (tid == 0) {
-      const T t_new = row.scal[kT] + dt;
-      row.scal[kT] = t_new;
-      classify_event(j, t_new, T_h, M, row.last_ind, row.last_time,
-                     row.crossed_ind, row.crossed_time, row.crossed);
-      // firing-order log: event k = iscal[kEvents], written before the
-      // count moves
-      const int k = row.iscal[kEvents];
-      if (sched != nullptr && k < E) sched[(size_t)row_id * E + k] = j;
-      if (times != nullptr && k < E) times[(size_t)row_id * E + k] = dt;
-      const int nev = k + 1;
-      row.iscal[kEvents] = nev;
-      bool all_crossed = true;
-      for (int m = 0; m < M; ++m) all_crossed = all_crossed && row.crossed[m];
-      row.iscal[kDone] = all_crossed || !(t_new < two_T) || nev >= kEventGuard;
+      int* ni = row.ind + ((nev + 1) & 1) * M;
+      int* nc = row.crossed + ((nev + 1) & 1) * M;
+      for (int m = 0; m < M; ++m) {
+        ni[m] = li[m];
+        nc[m] = cr[m];
+      }
+      if (moves) {
+        ni[mm] = j;
+        row.last_time[mm] = t;
+      } else if (crosses) {
+        nc[mm] = 1;
+        row.crossed_ind[mm] = j;
+        row.crossed_time[mm] = t;
+      }
+      // firing-order log: event k = nev
+      if (sched != nullptr && nev < E) sched[(size_t)row_id * E + nev] = j;
+      if (times != nullptr && nev < E) times[(size_t)row_id * E + nev] = dt;
     }
-    // the next event's runs, from the tracked indices just written
-    if (kWindow == kRuns && tid < 32) {
-      __syncwarp();
-      rank_windows(row, N, M, pad_m);
-    }
-    __syncthreads();
+    ++nev;
+    n_crossed += crosses;
+    if (stop) break;
+    pass<T, kGeom, true>(row, N, M, W, start, ws, Wm, dt, j, c, bt, bi, r);
   }
+  return RowEnd{nev, nfb, n_crossed == M};
 }
 
 template <typename T, bool kRowInGlobal>
@@ -442,15 +594,14 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
   row.w = row.b + N;                       // N/2 + 1 kick weights
   row.last_time = small;
   row.crossed_time = row.last_time + M;
-  row.red_t = row.crossed_time + M;        // 32 per-warp winners
-  row.red_r = row.red_t + 32;              // 32 per-warp bounds
-  row.scal = row.red_r + 32;               // [kT] t, [kDt] dt, [kRmin]
-  row.last_ind = reinterpret_cast<int*>(row.scal + 4);
-  row.crossed_ind = row.last_ind + M;
-  row.crossed = row.crossed_ind + M;
-  row.red_i = row.crossed + M;             // 32
-  row.iscal = row.red_i + 32;              // [kJ], [kDone], [kEvents], ...
-  row.win = row.iscal + 4;                 // M run starts, ranked
+  constexpr int kW = max_warps<T>();
+  row.red_t = row.crossed_time + M;        // 2 x kW per-warp winners
+  row.red_r = row.red_t + 2 * kW;          // 2 x kW per-warp bounds
+  row.ind = reinterpret_cast<int*>(row.red_r + 2 * kW);  // 2 x M
+  row.crossed = row.ind + 2 * M;           // 2 x M
+  row.crossed_ind = row.crossed + 2 * M;
+  row.red_i = row.crossed_ind + M;         // 2 x kW
+  row.win = row.red_i + 2 * kW;            // kW warps x M ranked starts
 
   const int p = row_id / R, r = row_id % R;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -464,44 +615,39 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
   const T two_T = T(2) * T(c.t_horizon);
   if (tid == 0) {
     for (int m = 0; m < M; ++m) {
-      row.last_ind[m] = row.crossed_ind[m] = init_ind[(size_t)p * M + m];
+      row.ind[m] = row.crossed_ind[m] = init_ind[(size_t)p * M + m];
       row.last_time[m] = T(0);
       row.crossed_time[m] = two_T;
       row.crossed[m] = 0;
     }
-    row.scal[kT] = T(0);
-    row.iscal[kDone] = 0;
-    row.iscal[kEvents] = 0;
-    row.iscal[kFallbacks] = 0;
   }
   __syncthreads();
 
   // the row's window, decided once from its initial tracked indices: the
   // one run where it holds them, else one run per tracked spike
-  if (W > 0 && !one_run_holds(row.last_ind, N, M, W, pad_w)) {
-    if (tid < 32) rank_windows(row, N, M, pad_m);
-    __syncthreads();
-    run_events<T, kRuns>(row, row_id, N, M, W, pad_w, Wm, pad_m, c, sched,
-                         E, times);
-  } else {
-    run_events<T, kOneRun>(row, row_id, N, M, W, pad_w, Wm, pad_m, c, sched,
-                           E, times);
-  }
+  RowEnd end;
+  if (W == 0)
+    end = run_events<T, kAll>(row, row_id, N, M, W, pad_w, Wm, pad_m, c,
+                              sched, E, times);
+  else if (one_run_holds(row.ind, N, M, W, pad_w))
+    end = run_events<T, kOneRun>(row, row_id, N, M, W, pad_w, Wm, pad_m, c,
+                                 sched, E, times);
+  else
+    end = run_events<T, kRuns>(row, row_id, N, M, W, pad_w, Wm, pad_m, c,
+                               sched, E, times);
 
   if (tid == 0) {
-    bool all_crossed = true;
+    const int* li = row.ind + (end.events & 1) * M;
     for (int m = 0; m < M; ++m) {
       const size_t o = (size_t)row_id * M + m;
-      last_ind_out[o] = row.last_ind[m];
+      last_ind_out[o] = li[m];
       last_time_out[o] = row.last_time[m];
       crossed_ind_out[o] = row.crossed_ind[m];
       crossed_time_out[o] = row.crossed_time[m];
-      all_crossed = all_crossed && row.crossed[m];
     }
-    accept_out[row_id] = all_crossed;
-    n_events_out[row_id] = row.iscal[kEvents];
-    if (fallbacks_out != nullptr)
-      fallbacks_out[row_id] = row.iscal[kFallbacks];
+    accept_out[row_id] = end.accept;
+    n_events_out[row_id] = end.events;
+    if (fallbacks_out != nullptr) fallbacks_out[row_id] = end.fallbacks;
   }
 }
 
@@ -509,8 +655,9 @@ __global__ void evolve_kernel(const T* __restrict__ v0,
 // counts the same arrays.
 template <typename T>
 size_t smem_bytes(int N, int M, bool row_in_global) {
-  const size_t small = (2 * (size_t)M + 32 + 32 + 4) * sizeof(T)
-                       + (4 * (size_t)M + 32 + 4) * sizeof(int);
+  const size_t kW = max_warps<T>();
+  const size_t small = (2 * (size_t)M + 4 * kW) * sizeof(T)
+                       + (5 * (size_t)M + 2 * kW + kW * M) * sizeof(int);
   return small + (row_in_global ? 0 : row_elems(N) * sizeof(T));
 }
 
@@ -525,7 +672,7 @@ int launch(const void* v0, const void* s0, const void* init_ind,
   if (P < 1 || R < 1 || N < 1 || M < 1 || (sched != nullptr && E < 1) ||
       (times != nullptr && sched == nullptr) ||
       W < 0 || W >= N || pad_b < 0 || pad_b >= N || threads < 32 ||
-      threads > 1024 || threads % 32)
+      threads > 32 * max_warps<T>() || threads % 32)
     return (int)cudaErrorInvalidValue;
   const bool global = row_scratch != nullptr;
   const size_t shmem = smem_bytes<T>(N, M, global);
@@ -562,7 +709,8 @@ int launch(const void* v0, const void* s0, const void* init_ind,
 // fallbacks: NULL, or P*R ints, each row's count of windowed events that
 // fell back to every lane.  beta_per_row: 0 = beta is
 // (R, N), shared by the P points; 1 = (P*R, N), one row of rates per row.
-// threads: the CTA's threads, a multiple of 32 up to 1024.
+// threads: the CTA's threads, a multiple of 32 up to 1024 for float and 512
+// for double.
 #define ATORCH_EVOLVE(NAME, T)                                                \
   extern "C" int NAME(const void* v0, const void* s0, const void* init_ind,   \
                       const void* beta, void* last_ind, void* last_time,      \

@@ -63,15 +63,18 @@ def row_shared_bytes(N: int, M: int, dtype: torch.dtype, kind: str) -> int:
     memory, counting every array of ``smem_bytes`` in ``csrc/evolve.cu``
     (``kind="evolve"``, values of ``dtype``) or ``csrc/replay.cu``
     (``kind="replay"``, always float64): the row and kick table, the
-    per-trajectory times, indices and flags, and the scalars (the evolve's
-    also three 32-slot tables for its block reduction and its window runs'
-    ranked starts; the replay's the two-slot mailbox of its events).  The
-    tangent kernel's CTAs are counted by
+    per-trajectory times, indices and flags (the evolve's tracked indices
+    and flags in two copies, by the event's parity), and the evolve's two
+    slots of three per-warp tables for its block reduction and each warp's
+    ranked window starts, for 32 warps (16 for float64, whose CTA takes at
+    most 512 threads), or the replay's scalars and the two-slot mailbox of
+    its events.  The tangent kernel's CTAs are counted by
     :func:`.replay_cuda.tangent_shared_bytes`."""
     if kind == "evolve":
         item = torch.empty((), dtype=dtype).element_size()
-        return (row_elems(N) + 2 * M + 32 + 32 + 4) * item \
-            + (4 * M + 32 + 4) * 4
+        warps = 16 if item == 8 else 32
+        return (row_elems(N) + 2 * M + 4 * warps) * item \
+            + (5 * M + 2 * warps + warps * M) * 4
     if kind == "replay":
         return (row_elems(N) + 2 * M + 2) * 8 + (3 * M + 2) * 4
     raise ValueError(f"kind must be 'evolve' or 'replay'; got {kind!r}")

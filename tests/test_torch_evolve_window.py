@@ -214,7 +214,7 @@ def test_certificate_ratio_cases():
 # ------------------------------------------------- shared-memory selection
 
 @pytest.mark.parametrize("dtype, kind, n_max", [
-    (torch.float32, "evolve", 16568), (torch.float64, "evolve", 8273),
+    (torch.float32, "evolve", 16515), (torch.float64, "evolve", 8267),
     (torch.float32, "replay", 8297), (torch.float64, "replay", 8297)])
 def test_row_fits_shared_at_its_limits(dtype, kind, n_max):
     """The largest N whose row state fits the 232,448-byte opt-in, for 3
@@ -240,9 +240,16 @@ def test_row_fits_shared_follows_the_cards_limit():
 
 def test_row_shared_bytes_counts_every_array():
     item = {torch.float32: 4, torch.float64: 8}
+    warps = {torch.float32: 32, torch.float64: 16}
     for dtype in item:
         for N, M in ((512, 3), (4096, 3), (1001, 5)):
-            small = (2 * M + 68) * item[dtype] + (4 * M + 36) * 4
+            # the trajectories' times, two slots of per-warp winners and
+            # bounds; two copies of the tracked indices and flags, the
+            # crossing indices, two slots of per-warp winners' indices and
+            # each warp's M ranked window starts
+            w = warps[dtype]
+            small = ((2 * M + 4 * w) * item[dtype]
+                     + (5 * M + 2 * w + w * M) * 4)
             table = (N // 2 + 1) * item[dtype]
             assert evolve_cuda.row_shared_bytes(N, M, dtype, "evolve") == \
                 3 * N * item[dtype] + table + small

@@ -182,6 +182,62 @@ def test_forced_fallback_stays_exact_on_the_card(card, dtype):
         assert torch.equal(fb, log_form_fallbacks(cfg, v0, s0, beta, ii))
 
 
+FAST_FAMILY = (0.4988, 0.5761, 11.0139)
+# K1's shapes in the benchmark's cells: (N, realisations, points, guess,
+# beta, forward FD step, W, dtype, logged events)
+CELL_SHAPES = {
+    # config 4's f32 stencil: 4 points x 64 realisations, one run
+    "config4_f32_256_rows": (4096, 64, 4, INITIAL_GUESS, 13.0589, 1e-6, 512,
+                             "float32", 0),
+    # the exact stage's fp64 evolve with its firing-order and time logs
+    "config4_f64_64_rows_logged": (4096, 64, 1, INITIAL_GUESS, 13.0589, 0.0,
+                                   512, "float64", 4096),
+    # the fast family's stencil, 4000 rows of one run per tracked spike
+    "fast_family_4000_rows": (512, 1000, 4, FAST_FAMILY, 13.3589, 1e-2, 128,
+                              "float32", 0),
+    # the walkers' every-lane evolve with its logs
+    "walkers_every_lane": (512, 4, 4, INITIAL_GUESS, 13.0589, 1e-2, 0,
+                           "float64", 1024),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(CELL_SHAPES))
+def test_kernel_is_the_plain_evolve_at_the_cells_shapes(card, shape):
+    """K1 at the cells' shapes, on the wrapper's block size: every row, the
+    logs and the per-row fallback counts equal the plain evolve's bit for
+    bit."""
+    N, R, P, guess, beta0, eps, W, dtype, E = CELL_SHAPES[shape]
+    cfg = pt.ModelConfig(n_neurons=N, n_real=R, dtype=dtype,
+                         evolve_window=W)
+    params = pt.MapParams.create(beta0, 0.1, dtype=dtype, device=card)
+    beta = pt.sample_beta(cfg, params, torch.Generator(card).manual_seed(0))
+    z0 = torch.tensor(guess, dtype=cfg.torch_dtype, device=card)
+    Z = torch.cat([z0[None], z0[None] + eps * torch.eye(
+        3, dtype=cfg.torch_dtype, device=card)])[:P]
+    v0, s0 = (x.contiguous() for x in pt.lift(cfg, params, pt.z_to_u(Z)))
+    ii = pt.initial_spike_indices(cfg, Z).contiguous()
+    rows = P * R
+    fb, fb_plain = (torch.zeros(rows, dtype=torch.int32, device=card)
+                    for _ in "kp")
+    times, times_plain = (torch.zeros(rows, E, dtype=torch.float64,
+                                      device=card) for _ in "kp")
+    logs = dict(record_schedule=E) if E else {}
+    rk = evolve_cuda.evolve_ensemble_cuda(
+        cfg, v0, s0, beta, ii, fallbacks=fb,
+        event_times=times if E else None, **logs)
+    rp = evolve_ensemble_batched(
+        cfg, v0, s0, beta, ii, fallbacks=fb_plain,
+        event_times=times_plain if E else None, **logs)
+    if E:
+        (rk, sk), (rp, sp) = rk, rp
+        assert int(rk.n_events.max()) <= E
+        assert torch.equal(sk, sp)
+        assert torch.equal(times, times_plain)
+    assert_equal_results(rk, rp)
+    assert torch.equal(fb, fb_plain)
+    assert bool(rk.accept.all())
+
+
 def test_evolve_kernel_above_its_shared_memory_n(card):
     """f64 at N=10240 keeps more row state than one CTA's shared memory:
     the kernel keeps it in device memory, on every lane and windowed, and

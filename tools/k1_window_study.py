@@ -11,12 +11,17 @@ points x 1000 realisations x 512 lanes from ``--guess 0.4988 0.5761
 4's stencil (4 points x 64 realisations x 4096 lanes from the ``Driver.cu``
 guess, steps of 1e-6, f32 and f64, W=512); sigma 0.1, the draw of seed 0.
 For each: K1's ms by CUDA events around one launch (median of
-``--repeats`` after two warm launches), windowed and on every lane, the
-share of windowed events that fell back to every lane, and whether every
-windowed row equals its every-lane row.  ``--checkout`` loads the package
-of another checkout (unpack the parent with ``git archive``); run two
-checkouts in turns in one call (parent, change, change, parent) to compare
-them.  Prints one JSON object with the card's name and power limit.
+``--repeats`` after two warm launches), windowed and on every lane, and
+the same as device microseconds an event (the launch's time over its
+events a row: the rows run side by side, each row's events one after
+another), the share of windowed events that fell back to every lane, and
+whether every windowed row equals its every-lane row.  Also the registers
+and spill bytes of each instantiation of the checkout's K1 as the
+package's flags compile it (``tools/kernel_resources.py``; needs
+``nvcc``).  ``--checkout`` loads the package of another checkout (unpack
+the parent with ``git archive``); run two checkouts in turns in one call
+(parent, change, change, parent) to compare them.  Prints one JSON object
+with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,6 +59,16 @@ def card() -> str:
         return "unknown"
 
 
+def registers(package: Path) -> dict:
+    """Registers, stack frame and spills of each K1 instantiation of the
+    package at ``package``."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from kernel_resources import source_resources
+    return {name: res for name, res in
+            source_resources(package / "csrc" / "evolve.cu").items()
+            if "evolve_kernel" in name}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkout", default=str(ROOT))
@@ -77,7 +92,8 @@ def main() -> int:
         return start.elapsed_time(end)
 
     out = {"checkout": str(Path(args.checkout).resolve()),
-           "package": pt.__file__, "card": card(), "cases": {}}
+           "package": pt.__file__, "card": card(),
+           "registers": registers(Path(pt.__file__).parent), "cases": {}}
     for name, N, R, guess, beta0, P, eps, W, dtype in CASES:
         cfg = pt.ModelConfig(n_neurons=N, n_real=R, dtype=dtype,
                              evolve_window=W)
@@ -107,6 +123,9 @@ def main() -> int:
         rw, rf = results["windowed"], results["full_lane"]
         events = int(rw.n_events.sum())
         case["events_per_row"] = events / (P * R)
+        for label in results:
+            case[f"{label}_us_per_event"] = (
+                1e3 * case[f"{label}_ms"] / case["events_per_row"])
         case["fallback_share_pct"] = 100.0 * int(fb.sum()) / events
         case["rows_equal_full_lane"] = all(
             torch.equal(getattr(rw, f), getattr(rf, f)) for f in FIELDS)
